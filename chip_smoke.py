@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``correrender_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each asserting; any failure exits non-zero:
+
+1. Device: a CUDA device must be present (there is no CPU path); prints
+   the card's name and power limit.
+2. Build: compiles the hand-written sm_90a kernels from
+   ``correrender_tpu_torch/ops/cuda/csrc`` (nvcc, into build/kernels/).
+3. Kernels against their plain PyTorch versions on the card: K1 Pearson,
+   K2 classify (NaN, degenerate domain, every slice orientation), K3
+   composite (with and without kstop).
+4. BASELINE config 1 at its own size (128×128×32, 100 members,
+   1280×720): ``render_correlation_fast`` through the kernels against the
+   same function on the CPU (one thread), where it runs the plain
+   versions; each kernel's launch counter must move.
+5. Config 1 at the headline grid (250³ voxels × 100 members drawn on the
+   card, 1920×1080, intermediate scale 0.75): the main path once with
+   counted launches; each kernel against its plain version on the inputs
+   the main path gave it; the median of 5 frames' stage times (CUDA
+   events at the stage boundaries of ``render_correlation_fast``, through
+   its ``on_stage`` hook), each beside the plain version's time on the
+   same inputs; the peak device memory.
+6. Where the time goes: 3 headline frames under ``torch.profiler``, the
+   device time per kernel group and the device's busy share.
+
+The second-to-last line is the kernels' JSON summary; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+ATOL_PEARSON = 2e-5  # tests/test_pallas.py:26
+ATOL_CLASSIFY = 4e-3  # one bf16 ulp below 1.0 is 3.9e-3
+ATOL_COMPOSITE = 3e-3  # tests/test_pallas.py:123-128
+MAX_ABS_FRAME = 1e-2
+MIN_SSIM_FRAME = 0.995
+
+KERNELS = {
+    "pearson": ("correrender_tpu_torch/ops/cuda/csrc/pearson.cu",
+                "correrender_tpu/ops/pallas/pearson_kernel.py:79"),
+    "classify_to_cf": ("correrender_tpu_torch/ops/cuda/csrc/classify.cu",
+                       "correrender_tpu/ops/pallas/shearwarp_kernel.py:159"),
+    "shearwarp_composite": (
+        "correrender_tpu_torch/ops/cuda/csrc/shearwarp.cu",
+        "correrender_tpu/ops/pallas/shearwarp_kernel.py:237"),
+}
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Max |a − b| over finite entries; NaN must sit in the same places."""
+    a = a.float()
+    b = b.float()
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    assert torch.equal(nan_a, nan_b), "NaN positions differ"
+    if bool(nan_a.all()):
+        return 0.0
+    return float((a[~nan_a] - b[~nan_b]).abs().max())
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_device() -> tuple[str, str]:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port's smoke run needs a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    print(f"[device] nvidia-smi: {smi}")
+    print(f"[device] torch: {name}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    return name, smi
+
+
+def phase_build() -> None:
+    from correrender_tpu_torch.ops.cuda import _build
+
+    t0 = time.perf_counter()
+    path, log = _build.build()
+    _build.library()
+    print(f"[build] {path.name} in {time.perf_counter() - t0:.3f} s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] ptxas: {line.strip()}")
+
+
+def phase_kernels(dev, errs: dict) -> None:
+    from correrender_tpu_torch.ops.cuda.pearson_kernel import (
+        pearson_cuda, pearson_plain)
+    from correrender_tpu_torch.ops.cuda.shearwarp_kernel import (
+        classify_to_cf, classify_to_cf_plain, shearwarp_composite,
+        shearwarp_composite_plain)
+    from correrender_tpu_torch.ops.pearson import pearson
+    from correrender_tpu_torch.render.tf import TransferFunction
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    # K1 at 64³×100 (a zero-variance voxel included) and unaligned (37, 73).
+    stack = synth_box_stack(64, 64, 64, 100, gen, dev)
+    stack[3, 4, 5] = 0.0
+    rng = np.random.default_rng(0)
+    cases = [
+        ("64^3x100", stack, stack[32, 32, 16].clone()),
+        ("37x73", torch.as_tensor(
+            rng.normal(size=(37, 73)).astype(np.float32), device=dev),
+         torch.as_tensor(rng.normal(size=73).astype(np.float32), device=dev)),
+    ]
+    for label, st, ref in cases:
+        got = pearson_cuda(st, ref)
+        torch.cuda.synchronize()
+        want = pearson_plain(st.reshape(-1, st.shape[-1]), ref).reshape(
+            st.shape[:-1])
+        f64 = pearson(ref, st, dtype=torch.float64)
+        err = max_abs(got, want)
+        print(f"[K1 pearson] {label}: max|kernel-plain| {err:.3e} "
+              f"(bar {ATOL_PEARSON}), max|kernel-f64| "
+              f"{max_abs(got, f64):.3e}, max|plain-f64| "
+              f"{max_abs(want, f64):.3e}")
+        assert err <= ATOL_PEARSON, label
+        errs["pearson"] = max(errs["pearson"], err)
+    assert bool(torch.isnan(pearson_cuda(stack, cases[0][2])[3, 4, 5]))
+
+    # K2: NaN, out-of-domain values, a degenerate domain, all orientations.
+    field = 1.5 * torch.randn((20, 24, 28), generator=gen, device=dev)
+    field[::3, ::5, ::2] = float("nan")
+    tf = TransferFunction.from_colormap(
+        "viridis", opacity_points=((0.0, 0.1), (1.0, 0.9)), device=dev)
+    for domain in ((-1.0, 1.0), (0.0, 0.0)):
+        for perm in ((0, 1, 2), (1, 0, 2), (2, 0, 1)):
+            for flip in (False, True):
+                got = classify_to_cf(field, perm, flip, tf.lut, domain)
+                torch.cuda.synchronize()
+                want = classify_to_cf_plain(field, perm, flip, tf.lut, domain)
+                err = max_abs(got, want)
+                assert err <= ATOL_CLASSIFY, (domain, perm, flip, err)
+                errs["classify_to_cf"] = max(errs["classify_to_cf"], err)
+    print(f"[K2 classify] NaN + degenerate domain, 6 orientations: "
+          f"max|kernel-plain| {errs['classify_to_cf']:.3e} "
+          f"(bar {ATOL_CLASSIFY})")
+
+    # K3: the tests/test_pallas.py:98-118 setup, with and without kstop.
+    s, yv, xv, hi, wi = 20, 24, 40, 48, 64
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    cf = t(rng.uniform(size=(s, yv, xv, 4)) * 0.3).to(torch.bfloat16)
+    args = dict(
+        g=t(np.linspace(1.0, 1.8, s)),
+        coords_y=t(np.linspace(-0.2, 0.2, yv)),
+        coords_x=t(np.linspace(-0.25, 0.25, xv)),
+        grid_v=t(np.linspace(-0.22, 0.22, hi)),
+        grid_u=t(np.linspace(-0.27, 0.27, wi)),
+        eye_uv=(0.05, -0.03),
+        len_factor=t(1.0 + 0.2 * rng.uniform(size=(hi, wi))),
+        slab_thickness=0.02, attenuation=80.0,
+    )
+    for kstop in (None, t(rng.uniform(0.0, s, size=(hi, wi)))):
+        rgb_k, a_k = shearwarp_composite(cf, **args, kstop=kstop)
+        torch.cuda.synchronize()
+        rgb_p, a_p = shearwarp_composite_plain(cf, **args, kstop=kstop)
+        err = max(max_abs(rgb_k, rgb_p), max_abs(a_k, a_p))
+        print(f"[K3 composite] kstop={'yes' if kstop is not None else 'no'}: "
+              f"max|kernel-plain| {err:.3e} (bar {ATOL_COMPOSITE})")
+        assert err <= ATOL_COMPOSITE
+        errs["shearwarp_composite"] = max(errs["shearwarp_composite"], err)
+
+
+def phase_config1(dev) -> None:
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_synth_box_pearson_dvr,
+        config1_transfer_function)
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.render.pipeline import render_correlation_fast
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+    from correrender_tpu_torch.utils.metrics import ssim
+
+    xs, ys, zs, members = 128, 128, 32, 100
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stack = synth_box_stack(xs, ys, zs, members, gen, dev)
+    cam = config1_camera()
+    ref_point = (xs // 4, ys // 4, zs // 2)
+    _build.reset_launch_counts()
+    img = render_correlation_fast(stack, ref_point, cam,
+                                  config1_transfer_function(dev),
+                                  image_size=(1280, 720))
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    # The CPU reference runs on one thread: see ROADMAP C for a fault of
+    # multi-threaded CPU reductions seen on one host.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    img_plain = render_correlation_fast(
+        stack.cpu(), ref_point, cam, config1_transfer_function("cpu"),
+        image_size=(1280, 720))
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    a, b = img.cpu().numpy(), img_plain.numpy()
+    assert a.shape == (720, 1280, 4) and np.isfinite(a).all()
+    err = float(np.abs(a - b).max())
+    sim = ssim(a, b)
+    print(f"[config1 128x128x32x100 1280x720] kernels vs plain (CPU, "
+          f"1 thread, {cpu_s:.1f} s): max-abs {err:.3e} (bar {MAX_ABS_FRAME}), "
+          f"SSIM {sim:.6f} (bar {MIN_SSIM_FRAME}), launches {counts}")
+    assert err <= MAX_ABS_FRAME and sim >= MIN_SSIM_FRAME
+    assert all(n > 0 for n in counts.values()), counts
+    res = config1_synth_box_pearson_dvr(device=dev)
+    assert torch.isfinite(res["image"]).all()
+    print(f"[config1] baseline_configs frame: "
+          f"{res['fused_field_plus_render_ms']:.3f} ms (one frame)")
+
+
+class StageClock:
+    """An ``on_stage`` hook for the main path: records a CUDA event as
+    each stage is enqueued, and keeps each stage's result."""
+
+    def __init__(self):
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+        self.marks = []
+        self.results = {}
+
+    def __call__(self, name, result):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.marks.append((name, event))
+        self.results[name] = result
+
+    def times(self) -> dict:
+        """Milliseconds per stage, and the whole frame."""
+        torch.cuda.synchronize()
+        out, prev = {}, self.start
+        for name, event in self.marks:
+            out[name] = prev.elapsed_time(event)
+            prev = event
+        out["frame"] = self.start.elapsed_time(prev)
+        return out
+
+
+def phase_headline(dev, card: str, errs: dict, side: int = 250,
+                   members: int = 100):
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_transfer_function)
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.ops.cuda.pearson_kernel import pearson_plain
+    from correrender_tpu_torch.ops.cuda.shearwarp_kernel import (
+        classify_to_cf_plain, shearwarp_composite_plain)
+    from correrender_tpu_torch.render.dvr_fast import composite_inputs
+    from correrender_tpu_torch.render.pipeline import (
+        reference_series, render_correlation_fast)
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+
+    image_size, scale = (1920, 1080), 0.75
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stack = synth_box_stack(side, side, side, members, gen, dev)
+    cam = config1_camera()
+    tf = config1_transfer_function(dev)
+    ref_point = (side // 4, side // 4, side // 2)
+
+    def frame(on_stage=None):
+        return render_correlation_fast(stack, ref_point, cam, tf,
+                                       image_size=image_size,
+                                       intermediate_scale=scale,
+                                       on_stage=on_stage)
+
+    frame()  # warm-up outside the counted run
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    clock = StageClock()
+    img = frame(clock)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[headline] main-path launches: {launches}")
+    assert all(n > 0 for n in launches.values()), launches
+    assert img.shape == (1080, 1920, 4) and bool(torch.isfinite(img).all())
+
+    # Each kernel against its plain version on the inputs the main path
+    # gave it.
+    field = clock.results["field"]
+    prepared = clock.results["classify"]
+    rgb, alpha, geo = clock.results["composite"]
+    cf = prepared["cf"]
+    n = stack.shape[-1]
+    series = stack.reshape(-1, n)
+    ref = reference_series(stack, ref_point)
+    field_plain = pearson_plain(series, ref).reshape(field.shape)
+    err_field = max_abs(field, field_plain)
+    print(f"[headline] field max|kernel-plain| {err_field:.3e} "
+          f"(bar {ATOL_PEARSON})")
+    assert err_field <= ATOL_PEARSON
+    errs["pearson"] = max(errs["pearson"], err_field)
+    del field_plain
+    flip = prepared["key"][1]
+    err_cf = max_abs(cf, classify_to_cf_plain(field, prepared["perm"], flip,
+                                              tf.lut, tf.domain))
+    print(f"[headline] classify max|kernel-plain| {err_cf:.3e} "
+          f"(bar {ATOL_CLASSIFY})")
+    assert err_cf <= ATOL_CLASSIFY
+    errs["classify_to_cf"] = max(errs["classify_to_cf"], err_cf)
+    print(f"[headline] slices {tuple(cf.shape[:3])}, intermediate "
+          f"{geo['hi_res']}x{geo['wi_res']}")
+    comp_args = composite_inputs(geo, dev)
+    rgb_p, alpha_p = shearwarp_composite_plain(cf, **comp_args,
+                                               attenuation=100.0)
+    err_comp = max(max_abs(rgb, rgb_p), max_abs(alpha, alpha_p))
+    print(f"[headline] composite max|kernel-plain| {err_comp:.3e} "
+          f"(bar {ATOL_COMPOSITE})")
+    assert err_comp <= ATOL_COMPOSITE
+    errs["shearwarp_composite"] = max(errs["shearwarp_composite"], err_comp)
+    del rgb_p, alpha_p
+
+    # Stage times of the main path (CUDA events at the stage boundaries),
+    # median of 5 frames, and each plain version on the same inputs.
+    runs = []
+    for _ in range(5):
+        clock = StageClock()
+        frame(clock)
+        runs.append(clock.times())
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    med_plain = {
+        "field": median_ms(lambda: pearson_plain(series, ref)),
+        "classify": median_ms(lambda: classify_to_cf_plain(
+            field, prepared["perm"], flip, tf.lut, tf.domain)),
+        "composite": median_ms(lambda: shearwarp_composite_plain(
+            cf, **comp_args, attenuation=100.0)),
+    }
+    med_plain["warp"] = med["warp"]  # the same torch code either way
+    med_plain["frame"] = sum(med_plain.values())
+    notes = {"field": " (K1 Pearson; includes the reference gather)",
+             "warp": " (torch bmm, no kernel; plain is the same code)",
+             "frame": " (plain: sum of the plain stages)"}
+    for stage in ("field", "classify", "composite", "warp", "frame"):
+        print(f"[headline {card}] {stage}: kernel {med[stage]:.3f} ms, "
+              f"plain {med_plain[stage]:.3f} ms{notes.get(stage, '')}")
+    gbs = side**3 * members * 4 / (med["field"] * 1e-3) / 1e9
+    print(f"[headline {card}] K1 Pearson reads {side**3 * members * 4 / 1e9:.2f}"
+          f" GB: {gbs:.1f} GB/s ({100 * gbs / 3350:.1f}% of 3.35 TB/s)")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[headline {card}] peak max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
+    stage_of = {"pearson": "field", "classify_to_cf": "classify",
+                "shearwarp_composite": "composite"}
+    stats = {k: (launches[k], med[stage_of[k]], med_plain[stage_of[k]])
+             for k in KERNELS}
+    return stats, frame
+
+
+def phase_profile(card: str, frame, frames: int = 3) -> None:
+    """Device time per kernel group under ``torch.profiler``, and the
+    device's busy share of the wall time, for ``frames`` frames."""
+    from torch.profiler import ProfilerActivity, profile
+
+    frame()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    groups = {"K1 pearson_kernel": "pearson_kernel",
+              "K2 classify_cf_kernel": "classify_cf_kernel",
+              "K3 composite_kernel": "composite_kernel",
+              "warp bmm (cuBLAS gemm)": "gemm"}
+    totals = dict.fromkeys(list(groups) + ["other torch kernels"], 0.0)
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = event.self_device_time_total / 1e3 / frames
+        group = next((g for g, key in groups.items() if key in event.key),
+                     "other torch kernels")
+        totals[group] += ms
+    device_ms = sum(totals.values())
+    print(f"[profile {card}] {frames} frames: wall {wall_ms:.3f} ms/frame, "
+          f"device {device_ms:.3f} ms/frame, busy "
+          f"{100 * device_ms / wall_ms:.1f}%")
+    for group, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
+        print(f"[profile {card}] {group}: {ms:.3f} ms/frame")
+    assert totals["K1 pearson_kernel"] > 0 and totals["K3 composite_kernel"] > 0
+
+
+def main() -> None:
+    name, smi = phase_device()
+    card = smi
+    dev = torch.device("cuda", 0)
+    phase_build()
+    errs = {k: 0.0 for k in KERNELS}
+    phase_kernels(dev, errs)
+    phase_config1(dev)
+    stats, frame = phase_headline(dev, card, errs)
+    phase_profile(card, frame)
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": KERNELS[k][0],
+         "replaces": KERNELS[k][1], "launches": stats[k][0],
+         "max_abs_err": errs[k], "ms": stats[k][1], "plain_ms": stats[k][2]}
+        for k in KERNELS
+    ]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,84 @@
+"""Transfer functions: scalar → RGBA through a LUT.
+
+Counterpart of ``correrender_tpu/render/tf.py``. A transfer function is
+a ``(resolution, 4)`` float32 LUT tensor (straight alpha) plus a host
+value domain; lookup is linear interpolation with clamp-to-edge.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# Built-in colormaps as control points (positions in [0, 1], rgb); the
+# same values as the JAX package's.
+_COLORMAPS = {
+    "gray": [(0.0, (0.0, 0.0, 0.0)), (1.0, (1.0, 1.0, 1.0))],
+    # Default of the reference's TF widget: blue→white→red diverging.
+    "coolwarm": [
+        (0.0, (0.231, 0.299, 0.754)),
+        (0.5, (0.865, 0.865, 0.865)),
+        (1.0, (0.706, 0.016, 0.150)),
+    ],
+    "viridis": [
+        (0.0, (0.267, 0.005, 0.329)),
+        (0.25, (0.229, 0.322, 0.546)),
+        (0.5, (0.127, 0.566, 0.551)),
+        (0.75, (0.369, 0.789, 0.383)),
+        (1.0, (0.993, 0.906, 0.144)),
+    ],
+    "heatmap": [
+        (0.0, (0.0, 0.0, 0.0)),
+        (0.35, (0.85, 0.0, 0.0)),
+        (0.85, (1.0, 1.0, 0.0)),
+        (1.0, (1.0, 1.0, 1.0)),
+    ],
+}
+
+
+def _sample_control_points(points, resolution):
+    xs = np.array([p[0] for p in points], np.float32)
+    vals = np.array([p[1] for p in points], np.float32)
+    t = np.linspace(0.0, 1.0, resolution, dtype=np.float32)
+    return np.stack(
+        [np.interp(t, xs, vals[:, c]) for c in range(vals.shape[1])], axis=-1
+    )
+
+
+@dataclasses.dataclass
+class TransferFunction:
+    """LUT-based transfer function over a scalar domain.
+
+    Attributes:
+      lut: ``(resolution, 4)`` float32 RGBA, straight alpha.
+      domain: host ``(vmin, vmax)`` scalar range mapped onto the LUT.
+    """
+
+    lut: torch.Tensor
+    domain: tuple = (0.0, 1.0)
+
+    @classmethod
+    def from_colormap(
+        cls,
+        name: str = "coolwarm",
+        domain=(0.0, 1.0),
+        opacity_points=((0.0, 0.0), (1.0, 1.0)),
+        resolution: int = 256,
+        device=None,
+    ) -> "TransferFunction":
+        """Build from a built-in colormap and a piecewise-linear opacity
+        ramp. Only the four built-ins exist so far."""
+        if name not in _COLORMAPS:
+            raise NotImplementedError(
+                f"colormap {name!r}: the diagram colormaps "
+                "(diagrams.colormaps) are not ported yet (ROADMAP A.4)"
+            )
+        rgb = _sample_control_points(_COLORMAPS[name], resolution)
+        alpha = _sample_control_points(
+            [(x, (a,)) for x, a in opacity_points], resolution
+        )
+        lut = np.concatenate([rgb, alpha], axis=-1).astype(np.float32)
+        return cls(lut=torch.as_tensor(lut, device=device),
+                   domain=tuple(float(d) for d in domain))
