@@ -11,7 +11,10 @@ Phases, each asserting; any failure exits non-zero:
    ``correrender_tpu_torch/ops/cuda/csrc`` (nvcc, into build/kernels/).
 3. Kernels against their plain PyTorch versions on the card: K1 Pearson,
    K2 classify (NaN, degenerate domain, every slice orientation), K3
-   composite (with and without kstop).
+   composite (with and without kstop), B3 classify_volume (NaN,
+   degenerate domain), B5 exact marcher at 64³ and 512×288 (six
+   orientations, NaN ignore and yellow, restriction in both metrics, a
+   depth-limit plane, a rotated model matrix).
 4. BASELINE config 1 at its own size (128×128×32, 100 members,
    1280×720): ``render_correlation_fast`` through the kernels against the
    same function on the CPU (one thread), where it runs the plain
@@ -25,6 +28,21 @@ Phases, each asserting; any failure exits non-zero:
    same inputs; the peak device memory.
 6. Where the time goes: 3 headline frames under ``torch.profiler``, the
    device time per kernel group and the device's busy share.
+7. Exact headline: the same 250³ × 100 stack, the K1 field, then
+   ``dvr_render_exact`` at 1920×1080, voxel step 0.1 (q = 10), with
+   config 1's camera and control-point TF: counted launches, B5 against
+   its plain version on the same prepared inputs, the median of 5 frame
+   times, B5's time beside the plain version's (3 plain runs), the peak
+   memory, and a ``torch.profiler`` split of 3 frames.
+8. Restricted and depth-clipped fast frame at the headline: the field →
+   ``classify_volume`` (B3) × ``restriction_mask`` (radius 0.1 around the
+   reference point) → ``dvr_shearwarp(classified=, depth_limit=)`` (K3
+   with kstop): counted launches, B3 against its plain version and both
+   times.
+9. Eye-inside frame: a camera inside the volume through
+   ``render_correlation_fast`` (→ ``dvr_render``, no kernel) at config
+   1's own size, against the same marcher run on the CPU (one thread,
+   every 24th row of the same rays), and its time.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -43,6 +61,13 @@ import torch
 ATOL_PEARSON = 2e-5  # tests/test_pallas.py:26
 ATOL_CLASSIFY = 4e-3  # one bf16 ulp below 1.0 is 3.9e-3
 ATOL_COMPOSITE = 3e-3  # tests/test_pallas.py:123-128
+# B5 vs its plain version: the same f32 march; the sample value differs
+# by FMA contraction (~1e-7), and where that moves a ray's alpha across
+# the 0.999 exit the plain version adds one more sample, at most
+# (1 − 0.999)·(one sample's alpha) ≤ 7e-5 at voxel step 0.1.
+ATOL_RAYMARCH = 1e-4
+ATOL_CLASSIFY_VOLUME = 1e-6  # ROADMAP B3: the f32 classify
+ATOL_EYE_INSIDE = 1e-4  # the same torch march on the card and the CPU
 MAX_ABS_FRAME = 1e-2
 MIN_SSIM_FRAME = 0.995
 
@@ -54,7 +79,18 @@ KERNELS = {
     "shearwarp_composite": (
         "correrender_tpu_torch/ops/cuda/csrc/shearwarp.cu",
         "correrender_tpu/ops/pallas/shearwarp_kernel.py:237"),
+    "raymarch_dvr": ("correrender_tpu_torch/ops/cuda/csrc/raymarch.cu",
+                     "correrender_tpu/ops/pallas/raymarch_kernel.py:1125"),
+    "classify_volume": ("correrender_tpu_torch/ops/cuda/csrc/classify.cu",
+                        "correrender_tpu/ops/pallas/classify_kernel.py:49"),
 }
+
+# The kernels of the shear-warp frame (phases 4-5).
+FAST_PATH = ("pearson", "classify_to_cf", "shearwarp_composite")
+HEADLINE_SIDE, HEADLINE_MEMBERS = 250, 100
+HEADLINE_IMAGE = (1920, 1080)
+EXACT_KERNEL_SIDE, EXACT_KERNEL_IMAGE = 64, (512, 288)
+CONFIG1_GRID, CONFIG1_IMAGE = (128, 128, 32), (1280, 720)  # (xs, ys, zs)
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -105,9 +141,15 @@ def phase_build() -> None:
     path, log = _build.build()
     _build.library()
     print(f"[build] {path.name} in {time.perf_counter() - t0:.3f} s")
+    entries = ("pearson_kernel", "classify_cf_kernel",
+               "classify_volume_kernel", "composite_kernel",
+               "raymarch_dvr_kernel")
+    entry = "?"
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+        if "entry function" in line:  # ptxas names the kernel first
+            entry = next((e for e in entries if e in line), "?")
+        elif "registers" in line or "spill" in line:
+            print(f"[build] ptxas {entry}: {line.strip()}")
 
 
 def phase_kernels(dev, errs: dict) -> None:
@@ -192,6 +234,103 @@ def phase_kernels(dev, errs: dict) -> None:
         errs["shearwarp_composite"] = max(errs["shearwarp_composite"], err)
 
 
+def smooth_volume(shape, gen, dev) -> torch.Tensor:
+    """tests/test_raymarch.py's smoothed normal volume, drawn on ``dev``."""
+    vol = torch.randn(shape, generator=gen, device=dev)
+    for ax in range(3):
+        vol = (vol + vol.roll(1, ax) + vol.roll(-1, ax)) / 3
+    return vol
+
+
+def depth_plane(cam, image_size, dev) -> torch.Tensor:
+    """``(H, W)`` eye distances to the plane through the origin that
+    faces the camera (+inf where a ray never meets it): a depth buffer
+    that clips the volume half way."""
+    origin, dirs = cam.rays(*image_size, device=dev)
+    n = -origin / origin.norm()
+    t = -(origin * n).sum() / (dirs * n).sum(-1)
+    return torch.where(t > 0, t, torch.inf)
+
+
+def rotation_y(deg: float) -> np.ndarray:
+    th = np.deg2rad(deg)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = [[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                 [-np.sin(th), 0, np.cos(th)]]
+    m[:3, 3] = (0.03, -0.02, 0.01)
+    return m
+
+
+def phase_kernels_exact(dev, errs: dict) -> None:
+    """B3 and B5 against their plain versions on the card."""
+    from correrender_tpu_torch.ops.cuda.raymarch_kernel import (
+        dvr_raymarch, dvr_raymarch_plain, plan_raymarch,
+        prepare_raymarch_volume)
+    from correrender_tpu_torch.render.camera import Camera
+    from correrender_tpu_torch.render.classify import (
+        classify_volume, classify_volume_plain)
+    from correrender_tpu_torch.render.tf import TransferFunction
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # B3: NaN, ±inf, out-of-domain values and a degenerate domain.
+    field = 1.5 * torch.randn((20, 24, 28), generator=gen, device=dev)
+    field[::3, ::5, ::2] = float("nan")
+    field[1, 2, :2] = torch.tensor([float("inf"), -float("inf")])
+    lut = torch.rand((256, 4), generator=gen, device=dev)
+    for domain in ((-1.0, 1.0), (0.0, 0.0)):
+        got = classify_volume(field, lut, domain)
+        torch.cuda.synchronize()
+        err = max_abs(got, classify_volume_plain(field, lut, domain))
+        assert err <= ATOL_CLASSIFY_VOLUME, (domain, err)
+        errs["classify_volume"] = max(errs["classify_volume"], err)
+    print(f"[B3 classify_volume] NaN, inf, degenerate domain: "
+          f"max|kernel-plain| {errs['classify_volume']:.3e} "
+          f"(bar {ATOL_CLASSIFY_VOLUME})")
+
+    # B5 at 64³ and 512×288, voxel step 0.1 (q = 10).
+    n = EXACT_KERNEL_SIDE
+    vol = smooth_volume((n, n, n), gen, dev)
+    vol[n // 2, n // 2 - 2, n // 2 + 2] = float("nan")
+    lo, hi = (float(v) for v in torch.aminmax(vol[~torch.isnan(vol)]))
+    tf = TransferFunction.from_control_points(
+        [(0.0, (0.0, 0.2, 1.0)), (0.5, (0.1, 1.0, 0.1)),
+         (1.0, (1.0, 0.1, 0.0))],
+        [(0.0, 0.0), (0.4, 0.3), (1.0, 0.9)], domain=(lo, hi), device=dev)
+    size = EXACT_KERNEL_IMAGE
+    near = Camera(position=(0.05, 0.08, 0.9))
+    cases = {
+        "-z": near,
+        "+z": Camera(position=(0.05, 0.08, -0.9)),
+        "-x": Camera(position=(0.9, 0.08, 0.05)),
+        "+x": Camera(position=(-0.9, 0.08, 0.05)),
+        "-y": Camera(position=(0.05, 0.9, 0.08), up=(0.0, 0.0, 1.0)),
+        "+y": Camera(position=(0.05, -0.9, 0.08), up=(0.0, 0.0, 1.0)),
+    }
+    runs = [(name, cam, {}) for name, cam in cases.items()] + [
+        ("nan yellow", near, dict(nan_mode="yellow")),
+        ("euclidean ball", near,
+         dict(restriction=((0.02, -0.01, 0.0), 0.12, "Euclidean"))),
+        ("chebyshev ball", near,
+         dict(restriction=((0.02, -0.01, 0.0), 0.09, "Chebyshev"))),
+        ("depth plane", near, dict(depth_limit=depth_plane(near, size, dev))),
+        ("model matrix", near, dict(model_matrix=rotation_y(30.0))),
+    ]
+    for name, cam, kw in runs:
+        model = kw.pop("model_matrix", None)
+        plan = plan_raymarch(cam, vol.shape, size, q=10, model_matrix=model)
+        prep = prepare_raymarch_volume(vol, plan["axis_world"], plan["flip"],
+                                       plan["lane_axis"])
+        rgb, a = dvr_raymarch(prep, cam, tf, size, plan, **kw)
+        torch.cuda.synchronize()
+        rgb_p, a_p = dvr_raymarch_plain(prep, cam, tf, size, plan, **kw)
+        err = max(max_abs(rgb, rgb_p), max_abs(a, a_p))
+        print(f"[B5 raymarch_dvr] {name}: max|kernel-plain| {err:.3e} "
+              f"(bar {ATOL_RAYMARCH}), mean alpha {float(a.mean()):.4f}")
+        assert err <= ATOL_RAYMARCH, name
+        assert float(a.max()) > 0.05, name  # the frame is not empty
+        errs["raymarch_dvr"] = max(errs["raymarch_dvr"], err)
+
+
 def phase_config1(dev) -> None:
     from correrender_tpu_torch.app.baseline_configs import (
         config1_camera, config1_synth_box_pearson_dvr,
@@ -230,7 +369,7 @@ def phase_config1(dev) -> None:
           f"1 thread, {cpu_s:.1f} s): max-abs {err:.3e} (bar {MAX_ABS_FRAME}), "
           f"SSIM {sim:.6f} (bar {MIN_SSIM_FRAME}), launches {counts}")
     assert err <= MAX_ABS_FRAME and sim >= MIN_SSIM_FRAME
-    assert all(n > 0 for n in counts.values()), counts
+    assert all(counts[k] > 0 for k in FAST_PATH), counts
     res = config1_synth_box_pearson_dvr(device=dev)
     assert torch.isfinite(res["image"]).all()
     print(f"[config1] baseline_configs frame: "
@@ -264,8 +403,7 @@ class StageClock:
         return out
 
 
-def phase_headline(dev, card: str, errs: dict, side: int = 250,
-                   members: int = 100):
+def phase_headline(dev, card: str, errs: dict, stack: torch.Tensor):
     from correrender_tpu_torch.app.baseline_configs import (
         config1_camera, config1_transfer_function)
     from correrender_tpu_torch.ops.cuda import _build
@@ -275,12 +413,10 @@ def phase_headline(dev, card: str, errs: dict, side: int = 250,
     from correrender_tpu_torch.render.dvr_fast import composite_inputs
     from correrender_tpu_torch.render.pipeline import (
         reference_series, render_correlation_fast)
-    from correrender_tpu_torch.utils.fixtures import synth_box_stack
 
-    image_size, scale = (1920, 1080), 0.75
+    image_size, scale = HEADLINE_IMAGE, 0.75
+    side, members = stack.shape[0], stack.shape[-1]
     torch.cuda.reset_peak_memory_stats(dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    stack = synth_box_stack(side, side, side, members, gen, dev)
     cam = config1_camera()
     tf = config1_transfer_function(dev)
     ref_point = (side // 4, side // 4, side // 2)
@@ -299,8 +435,9 @@ def phase_headline(dev, card: str, errs: dict, side: int = 250,
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"[headline] main-path launches: {launches}")
-    assert all(n > 0 for n in launches.values()), launches
-    assert img.shape == (1080, 1920, 4) and bool(torch.isfinite(img).all())
+    assert all(launches[k] > 0 for k in FAST_PATH), launches
+    assert img.shape == image_size[::-1] + (4,)
+    assert bool(torch.isfinite(img).all())
 
     # Each kernel against its plain version on the inputs the main path
     # gave it.
@@ -369,13 +506,15 @@ def phase_headline(dev, card: str, errs: dict, side: int = 250,
     stage_of = {"pearson": "field", "classify_to_cf": "classify",
                 "shearwarp_composite": "composite"}
     stats = {k: (launches[k], med[stage_of[k]], med_plain[stage_of[k]])
-             for k in KERNELS}
+             for k in FAST_PATH}
     return stats, frame
 
 
-def phase_profile(card: str, frame, frames: int = 3) -> None:
-    """Device time per kernel group under ``torch.profiler``, and the
-    device's busy share of the wall time, for ``frames`` frames."""
+def phase_profile(label: str, frame, groups: dict, required,
+                  frames: int = 3) -> None:
+    """Device time per kernel group (``{group: kernel-name part}``) under
+    ``torch.profiler``, and the device's busy share of the wall time, for
+    ``frames`` frames; every group in ``required`` must have run."""
     from torch.profiler import ProfilerActivity, profile
 
     frame()
@@ -387,10 +526,6 @@ def phase_profile(card: str, frame, frames: int = 3) -> None:
             frame()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    groups = {"K1 pearson_kernel": "pearson_kernel",
-              "K2 classify_cf_kernel": "classify_cf_kernel",
-              "K3 composite_kernel": "composite_kernel",
-              "warp bmm (cuBLAS gemm)": "gemm"}
     totals = dict.fromkeys(list(groups) + ["other torch kernels"], 0.0)
     for event in prof.key_averages():
         if event.device_type != torch.autograd.DeviceType.CUDA:
@@ -400,24 +535,249 @@ def phase_profile(card: str, frame, frames: int = 3) -> None:
                      "other torch kernels")
         totals[group] += ms
     device_ms = sum(totals.values())
-    print(f"[profile {card}] {frames} frames: wall {wall_ms:.3f} ms/frame, "
+    print(f"[{label}] {frames} frames: wall {wall_ms:.3f} ms/frame, "
           f"device {device_ms:.3f} ms/frame, busy "
           f"{100 * device_ms / wall_ms:.1f}%")
     for group, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
-        print(f"[profile {card}] {group}: {ms:.3f} ms/frame")
-    assert totals["K1 pearson_kernel"] > 0 and totals["K3 composite_kernel"] > 0
+        print(f"[{label}] {group}: {ms:.3f} ms/frame")
+    assert all(totals[g] > 0 for g in required), totals
+
+
+def phase_exact(dev, card: str, errs: dict, stack: torch.Tensor):
+    """Config 1's field rendered by the exact marcher (B5) at 1080p."""
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_transfer_function)
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.ops.cuda.raymarch_kernel import (
+        dvr_raymarch, dvr_raymarch_plain, plan_raymarch)
+    from correrender_tpu_torch.render.pipeline import reference_series
+    from correrender_tpu_torch.render.raymarch_exact import (
+        ExactPrepared, _q_from_voxel_step, dvr_render_exact)
+
+    image_size, side = HEADLINE_IMAGE, stack.shape[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    cam = config1_camera()
+    tf = config1_transfer_function(dev)
+    ref_point = (side // 4, side // 4, side // 2)
+
+    def field_of():
+        return correlate_field(stack, reference_series(stack, ref_point))
+
+    def frame():
+        return dvr_render_exact(field_of(), cam, tf, image_size=image_size,
+                                voxel_step=0.1)
+
+    frame()  # warm-up outside the counted run
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    img = frame()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[exact] main-path launches: {launches}")
+    assert launches["pearson"] > 0 and launches["raymarch_dvr"] > 0, launches
+    assert img.shape == image_size[::-1] + (4,)
+    assert bool(torch.isfinite(img).all())
+
+    # B5 against its plain version on the same prepared inputs; the plain
+    # march runs 3 times (the first is compared), the kernel 1 + 5.
+    field = field_of()
+    plan = plan_raymarch(cam, field.shape, image_size)
+    plan["q"] = _q_from_voxel_step(plan, 0.1)
+    assert plan["q"] == 10, plan["q"]
+    prep = ExactPrepared(field).get(plan["axis_world"], plan["flip"],
+                                    plan["lane_axis"])
+    args = (prep, cam, tf, image_size, plan)
+    rgb, a = dvr_raymarch(*args)
+    torch.cuda.synchronize()
+    plain_times = []
+    for i in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = dvr_raymarch_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_times.append(start.elapsed_time(end))
+        if i == 0:
+            rgb_p, a_p = out
+        del out
+    err = max(max_abs(rgb, rgb_p), max_abs(a, a_p))
+    print(f"[exact] B5 max|kernel-plain| {err:.3e} (bar {ATOL_RAYMARCH}), "
+          f"mean alpha {float(a.mean()):.4f}, rays reaching 0.999: "
+          f"{100 * float((a >= 0.999).float().mean()):.2f}%")
+    assert err <= ATOL_RAYMARCH
+    errs["raymarch_dvr"] = max(errs["raymarch_dvr"], err)
+    del rgb_p, a_p
+    kernel_ms = median_ms(lambda: dvr_raymarch(*args))
+    plain_ms = statistics.median(plain_times)
+    frame_ms = median_ms(frame)
+    prep_ms = median_ms(lambda: ExactPrepared(field).get(
+        plan["axis_world"], plan["flip"], plan["lane_axis"]))
+    print(f"[exact {card}] {side}^3 field, {image_size[0]}x"
+          f"{image_size[1]}, q 10: frame "
+          f"{frame_ms:.3f} ms (median of 5: K1 field + layout + B5 + "
+          f"epilogue)")
+    print(f"[exact {card}] B5 dvr_raymarch {kernel_ms:.3f} ms (median of 5, "
+          f"ray setup included), plain {plain_ms:.3f} ms (median of 3); "
+          f"prepare_raymarch_volume {prep_ms:.3f} ms")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[exact {card}] peak max_memory_allocated {peak / 2**30:.2f} GiB")
+    return {"raymarch_dvr": (launches["raymarch_dvr"], kernel_ms,
+                             plain_ms)}, frame
+
+
+def phase_restricted(dev, card: str, errs: dict,
+                     stack: torch.Tensor) -> dict:
+    """The Scene's restricted shear-warp frame at the headline: B3 × a
+    restriction ball, with a depth-limit plane (K3's kstop)."""
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_transfer_function)
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.render.camera import default_render_box
+    from correrender_tpu_torch.render.classify import (
+        classify_volume, classify_volume_plain)
+    from correrender_tpu_torch.render.dvr_fast import dvr_shearwarp
+    from correrender_tpu_torch.render.pipeline import reference_series
+    from correrender_tpu_torch.render.restriction import (
+        apply_restriction_rgba, restriction_center, restriction_mask)
+
+    image_size, scale = HEADLINE_IMAGE, 0.75
+    shape, side = stack.shape[:3], stack.shape[0]
+    cam = config1_camera()
+    tf = config1_transfer_function(dev)
+    ref_point = (side // 4, side // 4, side // 2)
+    box = default_render_box(shape)
+    depth = depth_plane(cam, image_size, dev)
+
+    def frame():
+        field = correlate_field(stack, reference_series(stack, ref_point))
+        center = restriction_center(ref_point, shape, box)
+        classified = apply_restriction_rgba(
+            classify_volume(field, tf.lut, tf.domain),
+            restriction_mask(shape, box, center, 0.1, device=dev))
+        return dvr_shearwarp(field, cam, tf, image_size=image_size,
+                             intermediate_scale=scale, classified=classified,
+                             depth_limit=depth)
+
+    frame()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    img = frame()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[restricted] main-path launches: {launches}")
+    assert all(launches[k] > 0 for k in (
+        "pearson", "classify_volume", "shearwarp_composite")), launches
+    assert launches["classify_to_cf"] == 0  # classified= replaces K2
+    assert img.shape == image_size[::-1] + (4,)
+    assert bool(torch.isfinite(img).all())
+
+    field = correlate_field(stack, reference_series(stack, ref_point))
+    err = max_abs(classify_volume(field, tf.lut, tf.domain),
+                  classify_volume_plain(field, tf.lut, tf.domain))
+    print(f"[restricted] B3 max|kernel-plain| {err:.3e} "
+          f"(bar {ATOL_CLASSIFY_VOLUME})")
+    assert err <= ATOL_CLASSIFY_VOLUME
+    errs["classify_volume"] = max(errs["classify_volume"], err)
+    b3_ms = median_ms(lambda: classify_volume(field, tf.lut, tf.domain))
+    b3_plain_ms = median_ms(
+        lambda: classify_volume_plain(field, tf.lut, tf.domain))
+    frame_ms = median_ms(frame)
+    print(f"[restricted {card}] frame {frame_ms:.3f} ms (median of 5: K1 "
+          f"field + B3 + mask + layout + K3 with kstop + warp)")
+    print(f"[restricted {card}] B3 classify_volume {b3_ms:.3f} ms, plain "
+          f"{b3_plain_ms:.3f} ms ({side}^3 field -> "
+          f"{side**3 * 16 / 1e6:.0f} MB of RGBA)")
+    return {"classify_volume": (launches["classify_volume"], b3_ms,
+                                b3_plain_ms)}
+
+
+def phase_eye_inside(dev, card: str) -> None:
+    """An eye inside the volume: ``render_correlation_fast`` renders it
+    with the fixed-step marcher; held to the same march on the CPU."""
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_transfer_function)
+    from correrender_tpu_torch.render.camera import Camera, default_render_box
+    from correrender_tpu_torch.render.dvr import (
+        dvr_composite, num_steps_for, world_step_size)
+    from correrender_tpu_torch.render.dvr_fast import shearwarp_viable
+    from correrender_tpu_torch.render.pipeline import render_correlation_fast
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+
+    (xs, ys, zs), members, rows = CONFIG1_GRID, 100, 24
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stack = synth_box_stack(xs, ys, zs, members, gen, dev)
+    cam = Camera(position=(0.0, 0.0, 0.02), look_at_point=(0.3, 0.1, -1.0))
+    tf = config1_transfer_function(dev)
+    ref_point, image_size = (xs // 4, ys // 4, zs // 2), CONFIG1_IMAGE
+    box = default_render_box((zs, ys, xs))
+    assert not shearwarp_viable(cam, box)
+
+    def frame(on_stage=None):
+        return render_correlation_fast(stack, ref_point, cam, tf,
+                                       image_size=image_size,
+                                       on_stage=on_stage)
+
+    stages = {}
+    img = frame(stages.__setitem__)
+    torch.cuda.synchronize()
+    assert list(stages) == ["field"]  # no shear-warp stage ran
+    assert img.shape == image_size[::-1] + (4,)
+    assert bool(torch.isfinite(img).all())
+    frame_ms = median_ms(frame, reps=3)
+    step = world_step_size((zs, ys, xs), box[0], box[1], 0.1)
+    origin, dirs = cam.rays(*image_size, device=dev)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # see ROADMAP C
+    t0 = time.perf_counter()
+    want = dvr_composite(
+        stages["field"].cpu(), origin.cpu(), dirs[::rows].cpu(), box[0],
+        box[1], tf.lut.cpu(), tf.domain, step, 100.0, (0.0, 0.0, 0.0, 1.0),
+        num_steps_for(box[0], box[1], step))
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    err = max_abs(img[::rows].cpu(), want)
+    print(f"[eye inside] {xs}x{ys}x{zs}x{members}, {image_size[0]}x"
+          f"{image_size[1]}: max|card-CPU| {err:.3e} "
+          f"over every {rows}th row (bar {ATOL_EYE_INSIDE}; CPU 1 thread "
+          f"{cpu_s:.1f} s), mean rgb {float(img[..., :3].mean()):.4f}")
+    assert err <= ATOL_EYE_INSIDE
+    print(f"[eye inside {card}] render_correlation_fast -> dvr_render "
+          f"{frame_ms:.3f} ms (median of 3; plain torch, no kernel)")
 
 
 def main() -> None:
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+
     name, smi = phase_device()
     card = smi
     dev = torch.device("cuda", 0)
     phase_build()
     errs = {k: 0.0 for k in KERNELS}
     phase_kernels(dev, errs)
+    phase_kernels_exact(dev, errs)
     phase_config1(dev)
-    stats, frame = phase_headline(dev, card, errs)
-    phase_profile(card, frame)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    side = HEADLINE_SIDE
+    stack = synth_box_stack(side, side, side, HEADLINE_MEMBERS, gen, dev)
+    stats, frame = phase_headline(dev, card, errs, stack)
+    phase_profile(f"profile fast {card}", frame, {
+        "K1 pearson_kernel": "pearson_kernel",
+        "K2 classify_cf_kernel": "classify_cf_kernel",
+        "K3 composite_kernel": "composite_kernel",
+        "warp bmm (cuBLAS gemm)": "gemm"},
+        ("K1 pearson_kernel", "K3 composite_kernel"))
+    exact_stats, exact_frame = phase_exact(dev, card, errs, stack)
+    stats.update(exact_stats)
+    phase_profile(f"profile exact {card}", exact_frame, {
+        "B5 raymarch_dvr_kernel": "raymarch_dvr_kernel",
+        "K1 pearson_kernel": "pearson_kernel"},
+        ("B5 raymarch_dvr_kernel", "K1 pearson_kernel"))
+    stats.update(phase_restricted(dev, card, errs, stack))
+    del stack, frame, exact_frame
+    phase_eye_inside(dev, card)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": stats[k][0],

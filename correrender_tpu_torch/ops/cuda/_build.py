@@ -29,7 +29,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-LAUNCHES = {"pearson": 0, "classify_to_cf": 0, "shearwarp_composite": 0}
+LAUNCHES = {"pearson": 0, "classify_to_cf": 0, "shearwarp_composite": 0,
+            "raymarch_dvr": 0, "classify_volume": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +50,13 @@ _SIGNATURES = {
     "correrender_shearwarp_composite": [
         _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
         _F, _F, _F, _F, _P, _P, _I, _P,
+    ],
+    # field, n, lutp, R, lo, hi, out
+    "correrender_classify_volume": [_P, _L, _P, _I, _F, _F, _P, _I, _P],
+    # vol, planes, sub_extent, lane_extent, fields, width, height,
+    # params (host), tfp (host), k, q, nan_mode, restriction, rgb, alpha
+    "correrender_raymarch_dvr": [
+        _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P,
     ],
 }
 

@@ -13,12 +13,14 @@ from __future__ import annotations
 import torch
 
 from correrender_tpu_torch.ops.cuda import _build
-from correrender_tpu_torch.render.classify import classify, premultiplied
+from correrender_tpu_torch.render.classify import (
+    classify_volume_plain,
+    premultiplied,
+)
 
 _EPS = 1e-6
-# Slices per step of the plain versions: bounds the (…, R) two-hot
-# weights of classify and the (chunk, hi, wi, 4) slab of the composite.
-_CLASSIFY_SLAB = 8
+# Slices per step of the plain composite: bounds its (chunk, hi, wi, 4)
+# slab.
 _COMPOSITE_CHUNK = 16
 
 
@@ -28,15 +30,11 @@ def _oriented(volume: torch.Tensor, perm, flip: bool) -> torch.Tensor:
 
 
 def classify_to_cf_plain(volume, perm, flip, lut, domain) -> torch.Tensor:
-    """Plain version of K2: :func:`render.classify.classify` (the f32
-    two-hot reference) of the slice-oriented field, stored as bf16.
-    Chunked over slices to bound the ``(…, R)`` weight tensor."""
-    svol = _oriented(volume, perm, flip)
-    return torch.cat([
-        classify(svol[s0:s0 + _CLASSIFY_SLAB], lut, domain).to(
-            torch.bfloat16)
-        for s0 in range(0, svol.shape[0], _CLASSIFY_SLAB)
-    ])
+    """Plain version of K2: the f32 two-hot reference
+    (:func:`render.classify.classify_volume_plain`) of the slice-oriented
+    field, stored as bf16."""
+    return classify_volume_plain(_oriented(volume, perm, flip), lut,
+                                 domain).to(torch.bfloat16)
 
 
 def classify_to_cf(volume: torch.Tensor, perm, flip: bool,
@@ -86,6 +84,17 @@ def classify_to_cf(volume: torch.Tensor, perm, flip: bool,
     )
     _build.check(err, "classify_to_cf")
     return out
+
+
+def prepare_cvol_cf(cvol: torch.Tensor) -> torch.Tensor:
+    """An oriented classified volume ``(S, Yv, Xv, 4)`` float32 (slices
+    near → far, premultiplied) in the compositor's layout: contiguous
+    bf16, the form :func:`classify_to_cf` produces. Counterpart of the
+    JAX package's ``prepare_cvol_cf`` without its 8×128 padding."""
+    if cvol.dim() != 4 or cvol.shape[-1] != 4:
+        raise ValueError(f"cvol has shape {tuple(cvol.shape)}, expected "
+                         "(S, Yv, Xv, 4)")
+    return cvol.to(torch.bfloat16, memory_format=torch.contiguous_format)
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:

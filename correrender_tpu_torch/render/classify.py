@@ -3,14 +3,22 @@
 Counterpart of ``correrender_tpu/render/classify.py``. The linearly
 interpolated LUT read ``rgba(v) = (1−f)·lut[i] + f·lut[i+1]`` is written
 as a two-hot weight row over the LUT bins times the LUT. This plain f32
-form is the reference the classify kernel (K2,
-``ops/cuda/csrc/classify.cu``) is held to.
+form is the reference the classify kernels (K2 and B3,
+``ops/cuda/csrc/classify.cu``) are held to.
+
+:func:`classify_volume` is B3's wrapper, beside its plain version.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from correrender_tpu_torch.ops.cuda import _build
+
+# z-slices per step of the plain classify_volume: bounds the (…, R)
+# two-hot weights.
+_CLASSIFY_SLAB = 8
 
 
 def two_hot_weights(values: torch.Tensor, domain,
@@ -56,3 +64,58 @@ def classify(scalars: torch.Tensor, lut: torch.Tensor, domain,
     w = two_hot_weights(scalars, domain, lut.shape[0])
     out_lut = premultiplied(lut) if premultiply else lut
     return torch.einsum("...r,rc->...c", w, out_lut)
+
+
+def classify_volume_plain(volume: torch.Tensor, lut: torch.Tensor,
+                          domain) -> torch.Tensor:
+    """Plain version of B3: :func:`classify` (premultiplied) of a
+    ``(Z, Y, X)`` field, chunked over z to bound the two-hot weights."""
+    return torch.cat([
+        classify(volume[z0:z0 + _CLASSIFY_SLAB], lut, domain)
+        for z0 in range(0, volume.shape[0], _CLASSIFY_SLAB)
+    ])
+
+
+def classify_volume(volume: torch.Tensor, lut: torch.Tensor,
+                    domain) -> torch.Tensor:
+    """Classify a ``(Z, Y, X)`` field into premultiplied RGBA.
+
+    Counterpart of ``correrender_tpu/render/classify.py::classify_volume``
+    (the TPU runs ``classify_pallas`` there).
+
+    Args:
+      volume: ``(Z, Y, X)`` float32 field, contiguous.
+      lut: ``(R, 4)`` float32 straight-alpha LUT on the field's device.
+      domain: host ``(lo, hi)`` mapped onto the LUT.
+
+    Returns:
+      ``(Z, Y, X, 4)`` float32 premultiplied RGBA; NaN → 0, a degenerate
+      domain → bin 0. A CPU field takes :func:`classify_volume_plain`; a
+      CUDA field launches kernel B3 (``csrc/classify.cu``).
+    """
+    lo, hi = (float(d) for d in domain)
+    if volume.device.type == "cpu":
+        return classify_volume_plain(volume, lut, (lo, hi))
+    if volume.device.type != "cuda":
+        raise ValueError(f"no classify kernel for device {volume.device}")
+    if volume.dim() != 3:
+        raise ValueError(f"volume has shape {tuple(volume.shape)}, "
+                         "expected (Z, Y, X)")
+    if lut.dim() != 2 or lut.shape[1] != 4:
+        raise ValueError(f"lut has shape {tuple(lut.shape)}, expected (R, 4)")
+    _build.require_cuda_tensor(volume, "volume", torch.float32, volume.device)
+    lutp = premultiplied(lut).contiguous()
+    _build.require_cuda_tensor(lutp, "lut", torch.float32, volume.device)
+    out = torch.empty(tuple(volume.shape) + (4,), dtype=torch.float32,
+                      device=volume.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    _build.LAUNCHES["classify_volume"] += 1
+    err = lib.correrender_classify_volume(
+        volume.data_ptr(), volume.numel(), lutp.data_ptr(), lutp.shape[0],
+        lo, hi, out.data_ptr(), volume.device.index,
+        _build.stream_of(volume),
+    )
+    _build.check(err, "classify_volume")
+    return out

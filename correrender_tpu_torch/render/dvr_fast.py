@@ -3,7 +3,9 @@
 Counterpart of ``correrender_tpu/render/dvr_fast.py``. A frame is:
 
 1. **Classify** the field through the transfer function into the
-   compositor's slice layout (K2, :func:`prepare_shearwarp`).
+   compositor's slice layout (K2, :func:`prepare_shearwarp`), or take a
+   classified volume (``classified=``, e.g. B3's output masked by a
+   render restriction) into that layout.
 2. **Shear (composite)**: slices along the principal axis are projected
    through the eye onto the reference plane (the nearest slice plane).
    That projection is a per-slice uniform scale about the eye's in-plane
@@ -16,6 +18,11 @@ Counterpart of ``correrender_tpu/render/dvr_fast.py``. A frame is:
 Reference semantics: DvrShader.glsl compositing (alpha = 1 −
 exp(−τ·Δs·attenuation), premultiplied OVER, background blend,
 un-premultiply — DvrShader.glsl:103-137).
+
+A camera whose eye is inside (or past the near face of) the
+principal-axis slab cannot be factored; such frames go to the
+fixed-step marcher (``render/dvr.py::dvr_render``), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from correrender_tpu_torch.ops.cuda.shearwarp_kernel import (
     classify_to_cf,
+    prepare_cvol_cf,
     round_bf16,
     shearwarp_composite,
 )
@@ -34,6 +42,7 @@ from correrender_tpu_torch.render.camera import (
     default_render_box,
     ray_dirs_affine,
 )
+from correrender_tpu_torch.render.dvr import blend_background, dvr_render
 
 _EPS = 1e-6
 _WARP_CHUNK = 16  # rows (pass A) or columns (pass B) per warp product
@@ -173,12 +182,16 @@ def shearwarp_viable(camera, box) -> bool:
 
 
 def prepare_shearwarp(volume: torch.Tensor, transfer_function,
-                      camera) -> dict:
+                      camera, classified: torch.Tensor | None = None) -> dict:
     """Build the compositor's resident slice layout for a camera.
 
     Classifies the ``(Z, Y, X)`` field into the ``(S, Yv, Xv, 4)`` bf16
     layout with K2, which reads the field through the orientation's
-    strides. The JAX package also keeps a transposed scalar copy to
+    strides. With ``classified`` (a ``(Z, Y, X, 4)`` premultiplied RGBA
+    volume, e.g. :func:`render.classify.classify_volume` times a
+    restriction mask) that volume is oriented and cast into the layout
+    instead (:func:`prepare_cvol_cf`), and the transfer function is not
+    read. The JAX package also keeps a transposed scalar copy to
     reuse across transfer-function changes (``prior=``); here the
     oriented field is a strided view that costs nothing to rebuild, so
     there is no prior.
@@ -189,8 +202,12 @@ def prepare_shearwarp(volume: torch.Tensor, transfer_function,
     """
     _, a, in_plane, flip = shearwarp_axes(camera)
     perm = slice_perm(a, in_plane)
-    cf = classify_to_cf(volume, perm, flip, transfer_function.lut,
-                        transfer_function.domain)
+    if classified is None:
+        cf = classify_to_cf(volume, perm, flip, transfer_function.lut,
+                            transfer_function.domain)
+    else:
+        cvol = classified.permute(*perm, 3)
+        cf = prepare_cvol_cf(cvol.flip(0) if flip else cvol)
     return {"key": (a, flip), "perm": perm, "s": cf.shape[0],
             "vu": (cf.shape[1], cf.shape[2]), "cf": cf}
 
@@ -215,39 +232,42 @@ def dvr_shearwarp(
       volume: ``(Z, Y, X)`` float32 scalar field.
       intermediate_scale: intermediate-grid resolution multiplier
         relative to the larger of (image size, 2× volume face).
-      classified: not ported yet; raises.
+      classified: optionally a ``(Z, Y, X, 4)`` premultiplied RGBA volume
+        to composite instead of classifying ``volume`` (see
+        :func:`prepare_shearwarp`); unused when ``prepared`` matches.
       prepared: a :func:`prepare_shearwarp` result, reused while its
         camera key (principal axis, slice order) still matches.
-      depth_limit: not ported yet; raises.
+      depth_limit: optional ``(H, W)`` world eye distances (the shared
+        per-view depth buffer). Pulled into the intermediate grid
+        through the inverse screen homography and converted to
+        fractional stop-slice indices (K3's ``kstop``).
       on_stage: optional ``on_stage(name, result)`` called as each stage
         has been enqueued: ``"classify"`` (the prepared layout),
         ``"composite"`` (``(rgb, alpha, geometry)``) and ``"warp"`` (the
         frame). For stage timing; the frame does not depend on it.
 
     Returns:
-      ``(H, W, 4)`` straight-alpha RGBA on the volume's device.
+      ``(H, W, 4)`` straight-alpha RGBA on the volume's device. A camera
+      that :func:`shearwarp_viable` rejects is rendered by
+      :func:`render.dvr.dvr_render` from ``volume`` and the transfer
+      function (``classified`` cannot be carried there, as in the JAX
+      package), without stage callbacks.
     """
-    if classified is not None:
-        raise NotImplementedError(
-            "dvr_shearwarp(classified=...): classify_volume is not ported "
-            "yet (ROADMAP A.4, kernel B3)")
-    if depth_limit is not None:
-        raise NotImplementedError(
-            "dvr_shearwarp(depth_limit=...): depth clipping comes with the "
-            "exact DVR (ROADMAP A.5)")
     zs, ys, xs = volume.shape
     if box is None:
         box = default_render_box((zs, ys, xs))
     box_min = np.asarray(box[0], np.float32)
     box_max = np.asarray(box[1], np.float32)
     if not shearwarp_viable(camera, (box_min, box_max)):
-        raise NotImplementedError(
-            "dvr_shearwarp: the eye is inside the principal-axis slab; "
-            "such cameras need the exact DVR (ROADMAP A.5)")
+        return dvr_render(volume, camera, transfer_function,
+                          image_size=image_size, box=box,
+                          attenuation=attenuation, background=background,
+                          depth_limit=depth_limit)
 
     eye, a, in_plane, flip = shearwarp_axes(camera)
     if prepared is None or prepared["key"] != (a, flip):
-        prepared = prepare_shearwarp(volume, transfer_function, camera)
+        prepared = prepare_shearwarp(volume, transfer_function, camera,
+                                     classified=classified)
     stage = on_stage or (lambda name, result: None)
     stage("classify", prepared)
     n_slices = prepared["s"]
@@ -258,17 +278,81 @@ def dvr_shearwarp(
         camera, box_min, box_max, a, in_plane, flip, n_slices, nv, nu,
         image_size, intermediate_scale, device=dev,
     )
+    width, height = image_size
+    kstop = None
+    if depth_limit is not None:
+        kstop = _depth_to_kstop(depth_limit, camera, width, height, in_plane,
+                                a, eye, geo)
     inter_rgb, inter_a = shearwarp_composite(
-        prepared["cf"], **composite_inputs(geo, dev), attenuation=attenuation)
+        prepared["cf"], **composite_inputs(geo, dev), attenuation=attenuation,
+        kstop=kstop)
     stage("composite", (inter_rgb, inter_a, geo))
 
-    width, height = image_size
     image = warp_to_screen(
         inter_rgb, inter_a, camera, width, height, in_plane, a, eye,
         geo["z_ref"], geo["grid_u"], geo["grid_v"], background,
     )
     stage("warp", image)
     return image
+
+
+def _depth_to_kstop(depth_limit, camera, width, height, in_plane, a, eye,
+                    geo) -> torch.Tensor:
+    """Screen-space depth buffer → fractional stop-slice indices
+    ``(hi, wi)`` on the intermediate grid.
+
+    The 3×3 inverse of the intermediate → screen homography maps every
+    intermediate pixel to its screen position, where the depth buffer is
+    sampled bilinearly (+inf, and positions off the screen, mean no
+    clip). Depth along a ray is linear in the slice coordinate,
+    ``dist(k) = (|s₀ − e_a| + k·|Δs|)·len_factor``, so the sampled
+    distance converts to a fractional slice index in closed form.
+    """
+    z_ref, grid_u, grid_v = geo["z_ref"], geo["grid_u"], geo["grid_v"]
+    len_factor, slice_coords = geo["len_factor"], geo["slice_coords"]
+    n_slices = len(slice_coords)
+    m = np.array(_homography_coeffs(camera, width, height, in_plane, a, eye,
+                                    z_ref, grid_u, grid_v), np.float64)
+    try:
+        minv = np.linalg.inv(m)
+    except np.linalg.LinAlgError as exc:
+        raise ValueError(
+            "depth_limit: degenerate screen homography for this camera"
+        ) from exc
+    dev = len_factor.device
+    su = torch.arange(len(grid_u), dtype=torch.float32, device=dev)[None, :]
+    sv = torch.arange(len(grid_v), dtype=torch.float32, device=dev)[:, None]
+    mi = [[float(v) for v in row] for row in minv.astype(np.float32)]
+    q0 = mi[0][0] * su + mi[0][1] * sv + mi[0][2]
+    q1 = mi[1][0] * su + mi[1][1] * sv + mi[1][2]
+    q2 = mi[2][0] * su + mi[2][1] * sv + mi[2][2]
+    q0 = torch.where(q0.abs() < 1e-12, 1e-12, q0)
+    px = q1 / q0
+    py = q2 / q0
+
+    d = torch.as_tensor(depth_limit, dtype=torch.float32, device=dev)
+    d = torch.where(torch.isfinite(d), d, 1e9)
+    # Clamped before the integer cast, which is undefined for huge or
+    # NaN values; positions off the screen are masked below anyway.
+    x0i = torch.clamp(torch.floor(torch.clamp(px, -1.0, float(width))),
+                      0, width - 2).to(torch.long)
+    y0i = torch.clamp(torch.floor(torch.clamp(py, -1.0, float(height))),
+                      0, height - 2).to(torch.long)
+    fx = torch.clamp(px - x0i, 0.0, 1.0)
+    fy = torch.clamp(py - y0i, 0.0, 1.0)
+    dint = (
+        d[y0i, x0i] * (1 - fy) * (1 - fx)
+        + d[y0i, x0i + 1] * (1 - fy) * fx
+        + d[y0i + 1, x0i] * fy * (1 - fx)
+        + d[y0i + 1, x0i + 1] * fy * fx
+    )
+    outside = (px < 0) | (px > width - 1) | (py < 0) | (py > height - 1)
+    dint = torch.where(outside, 1e9, dint)
+    step_abs = (abs(float(slice_coords[1] - slice_coords[0]))
+                if n_slices > 1 else 1.0)
+    base = abs(float(slice_coords[0] - eye[a]))
+    kstop = (dint / torch.clamp_min(len_factor, 1e-9) - base) / step_abs
+    return torch.clamp(kstop, 0.0, float(n_slices))
 
 
 def warp_to_screen(
@@ -376,16 +460,7 @@ def _warp(inter_rgb, inter_a, grid_u, grid_v, origin, directions,
     # Resampling can overshoot alpha past 1 by ~2e-3 (bf16 tent
     # weights); a > 1 would make the (1 − a) background term negative.
     alpha = torch.clamp(bilerp(inter_a) * mask, 0.0, 1.0)
-    return _blend_background(rgb, alpha, background)
-
-
-def _blend_background(rgb, alpha, background):
-    """Premultiplied image OVER the background, then un-premultiplied."""
-    bg = torch.as_tensor(background, dtype=torch.float32, device=rgb.device)
-    rgb = rgb + (1.0 - alpha)[..., None] * bg[3] * bg[:3]
-    alpha = alpha + (1.0 - alpha) * bg[3]
-    safe = torch.clamp_min(alpha, _EPS)
-    return torch.cat([rgb / safe[..., None], alpha[..., None]], dim=-1)
+    return blend_background(rgb, alpha, background)
 
 
 # ---------------------------------------------------------------------------
@@ -524,4 +599,4 @@ def _warp_finish(s_img, den_full, sign_ok, background):
     valid = (den_full * sign_ok > 0).to(torch.float32)
     rgb = s_img[..., :3] * valid[..., None]
     alpha = torch.clamp(s_img[..., 3] * valid, 0.0, 1.0)  # see _warp
-    return _blend_background(rgb, alpha, background)
+    return blend_background(rgb, alpha, background)

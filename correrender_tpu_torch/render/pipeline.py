@@ -2,8 +2,9 @@
 
 Counterpart of ``correrender_tpu/render/pipeline.py``. Moving the
 reference point re-runs the whole chain on the device: gather the
-reference series, the Pearson field (K1), classification (K2), the
-shear-warp composite (K3) and the warp.
+reference series, the Pearson field (K1), then either the shear-warp
+renderer (:func:`render_correlation_fast`: classification K2, composite
+K3 and the warp) or the fixed-step marcher (:func:`render_correlation`).
 """
 
 from __future__ import annotations
@@ -11,6 +12,12 @@ from __future__ import annotations
 import torch
 
 from correrender_tpu_torch.calculators.correlation import correlate_field
+from correrender_tpu_torch.render.camera import default_render_box
+from correrender_tpu_torch.render.dvr import (
+    dvr_composite,
+    num_steps_for,
+    world_step_size,
+)
 from correrender_tpu_torch.render.dvr_fast import dvr_shearwarp
 
 
@@ -68,4 +75,36 @@ def render_correlation_fast(
         background=background,
         intermediate_scale=intermediate_scale,
         on_stage=on_stage,
+    )
+
+
+def render_correlation(
+    stack: torch.Tensor,
+    ref_point,
+    camera,
+    transfer_function,
+    measure="pearson",
+    image_size=(512, 512),
+    voxel_step: float = 0.1,
+    attenuation: float = 100.0,
+    background=(0.0, 0.0, 0.0, 1.0),
+) -> torch.Tensor:
+    """Correlation field → the fixed-step DVR marcher
+    (:func:`render.dvr.dvr_composite`) over the default render box; see
+    :func:`render_correlation_fast` for the shear-warp path.
+
+    Returns:
+      ``(H, W, 4)`` straight-alpha RGBA on the stack's device.
+    """
+    zs, ys, xs, _ = stack.shape
+    box_min, box_max = default_render_box((zs, ys, xs))
+    step = world_step_size((zs, ys, xs), box_min, box_max, voxel_step)
+    width, height = image_size
+    origin, directions = camera.rays(width, height, device=stack.device)
+    field = correlate_field(stack, reference_series(stack, ref_point),
+                            measure)
+    return dvr_composite(
+        field, origin, directions, box_min, box_max, transfer_function.lut,
+        transfer_function.domain, step, attenuation, background,
+        num_steps_for(box_min, box_max, step),
     )

@@ -2,7 +2,10 @@
 
 Counterpart of ``correrender_tpu/render/tf.py``. A transfer function is
 a ``(resolution, 4)`` float32 LUT tensor (straight alpha) plus a host
-value domain; lookup is linear interpolation with clamp-to-edge.
+value domain; lookup is linear interpolation with clamp-to-edge. A
+transfer function built from control points keeps them: the exact
+marcher evaluates the piecewise-linear function from its hinges
+(``ops/cuda/raymarch_kernel.py::tf_hinges``), not from the LUT.
 """
 
 from __future__ import annotations
@@ -54,10 +57,17 @@ class TransferFunction:
     Attributes:
       lut: ``(resolution, 4)`` float32 RGBA, straight alpha.
       domain: host ``(vmin, vmax)`` scalar range mapped onto the LUT.
+      color_points, opacity_points: the source control points
+        ``[(pos, (r, g, b)), ...]`` and ``[(pos, alpha), ...]`` when the
+        LUT was built from them; ``None`` for a LUT-only function.
     """
 
     lut: torch.Tensor
     domain: tuple = (0.0, 1.0)
+    color_points: list | None = dataclasses.field(default=None,
+                                                  compare=False)
+    opacity_points: list | None = dataclasses.field(default=None,
+                                                    compare=False)
 
     @classmethod
     def from_colormap(
@@ -75,10 +85,29 @@ class TransferFunction:
                 f"colormap {name!r}: the diagram colormaps "
                 "(diagrams.colormaps) are not ported yet (ROADMAP A.4)"
             )
-        rgb = _sample_control_points(_COLORMAPS[name], resolution)
+        return cls.from_control_points(_COLORMAPS[name], opacity_points,
+                                       domain, resolution, device)
+
+    @classmethod
+    def from_control_points(
+        cls,
+        color_points,
+        opacity_points,
+        domain=(0.0, 1.0),
+        resolution: int = 256,
+        device=None,
+    ) -> "TransferFunction":
+        """Build from piecewise-linear control points ``(pos, (r, g, b))``
+        and ``(pos, alpha)``, positions in ``[0, 1]``, interpolated in the
+        stored (sRGB) values."""
+        color_points = [(float(x), tuple(float(v) for v in c))
+                        for x, c in color_points]
+        opacity_points = [(float(x), float(a)) for x, a in opacity_points]
+        rgb = _sample_control_points(color_points, resolution)
         alpha = _sample_control_points(
             [(x, (a,)) for x, a in opacity_points], resolution
         )
         lut = np.concatenate([rgb, alpha], axis=-1).astype(np.float32)
         return cls(lut=torch.as_tensor(lut, device=device),
-                   domain=tuple(float(d) for d in domain))
+                   domain=tuple(float(d) for d in domain),
+                   color_points=color_points, opacity_points=opacity_points)

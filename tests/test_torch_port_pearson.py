@@ -199,7 +199,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_source_hash_covers_every_kernel_source():
     names = sorted(p.name for p in _build._sources())
-    assert names == ["classify.cu", "pearson.cu", "shearwarp.cu"]
+    assert names == ["classify.cu", "pearson.cu", "raymarch.cu",
+                     "shearwarp.cu"]
     assert _build._source_hash() == _build._source_hash()
 
 

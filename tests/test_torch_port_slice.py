@@ -1,6 +1,7 @@
 """PyTorch port (correrender_tpu_torch) vs the JAX package: the whole
 config-1 slice (reference series → Pearson field → shear-warp DVR), its
-stubbed branches, and the port's independence from JAX.
+eye-inside, depth-clipped and pre-classified branches, and the port's
+independence from JAX.
 
 On the CPU every kernel wrapper runs its plain version; chip_smoke.py
 holds the kernels to those on the card.
@@ -181,25 +182,60 @@ def test_tensor_reference_point_matches_host_ints(config1):
     assert torch.equal(got, stack[6, 4, 5])
 
 
+# The next three tests began as pins of branches the first slice left
+# out; those branches are ported now, and each test holds its branch to
+# the JAX package.
+
+
+def _field_and_cams(config1, **cam_kw):
+    _, (jcam, jtf), (tcam, ttf) = config1
+    if cam_kw:
+        jcam = JaxCamera(**cam_kw)
+        tcam = camera_from_fields(jcam.position, jcam.look_at_point, jcam.up,
+                                  jcam.fovy, jcam.z_near, jcam.z_far)
+    field = np.random.default_rng(8).uniform(
+        -1, 1, size=(12, 20, 24)).astype(np.float32)
+    return field, (jcam, jtf), (tcam, ttf)
+
+
 def test_non_viable_camera_is_stubbed(config1):
-    _, _, (_, ttf) = config1
-    inside = Camera(position=(0.0, 0.0, 0.01), look_at_point=(0.0, 0.0, -1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        dvr_shearwarp(torch.zeros((12, 20, 24)), inside, ttf)
+    # An eye inside the volume's slab renders with the fixed-step marcher.
+    field, (jcam, jtf), (tcam, ttf) = _field_and_cams(
+        config1, position=(0.0, 0.0, 0.01), look_at_point=(0.0, 0.0, -1.0))
+    kw = dict(image_size=(48, 32), attenuation=20.0)
+    want = np.asarray(jax_dvr(jnp.asarray(field), jcam, jtf, **kw))
+    got = dvr_shearwarp(torch.from_numpy(field), tcam, ttf, **kw).numpy()
+    assert np.abs(got - want).max() <= 1e-5
+    assert got[..., :3].max() > 0.05
 
 
 def test_depth_limit_is_stubbed(config1):
-    _, _, (tcam, ttf) = config1
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        dvr_shearwarp(torch.zeros((12, 20, 24)), tcam, ttf,
-                      depth_limit=torch.zeros((4, 4)))
+    field, (jcam, jtf), (tcam, ttf) = _field_and_cams(config1)
+    depth = np.full((IMAGE[1], IMAGE[0]), np.inf, np.float32)
+    depth[:, IMAGE[0] // 2:] = 0.9  # a wall through the right half
+    want = np.asarray(jax_dvr(jnp.asarray(field), jcam, jtf,
+                              image_size=IMAGE,
+                              depth_limit=jnp.asarray(depth)))
+    got = dvr_shearwarp(torch.from_numpy(field), tcam, ttf, image_size=IMAGE,
+                        depth_limit=depth).numpy()
+    assert np.abs(got - want).max() <= MAX_ABS
+    assert jmetrics.ssim(got, want) >= MIN_SSIM
+    free = dvr_shearwarp(torch.from_numpy(field), tcam, ttf,
+                         image_size=IMAGE).numpy()
+    assert np.abs(got - free)[:, IMAGE[0] // 2:].max() > 0.05
 
 
 def test_classified_volume_is_stubbed(config1):
-    _, _, (tcam, ttf) = config1
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        dvr_shearwarp(torch.zeros((12, 20, 24)), tcam, ttf,
-                      classified=torch.zeros((12, 20, 24, 4)))
+    field, (jcam, jtf), (tcam, ttf) = _field_and_cams(config1)
+    cls = np.random.default_rng(9).uniform(
+        0, 0.4, size=field.shape + (4,)).astype(np.float32)
+    want = np.asarray(jax_dvr(jnp.asarray(field), jcam, jtf,
+                              image_size=IMAGE,
+                              classified=jnp.asarray(cls)))
+    got = dvr_shearwarp(torch.from_numpy(field), tcam, ttf, image_size=IMAGE,
+                        classified=torch.from_numpy(cls)).numpy()
+    assert np.abs(got - want).max() <= MAX_ABS
+    assert jmetrics.ssim(got, want) >= MIN_SSIM
 
 
 def test_other_measures_are_stubbed_on_the_main_path(config1):
