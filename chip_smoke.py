@@ -8,13 +8,18 @@ Phases, each asserting; any failure exits non-zero:
 1. Device: a CUDA device must be present (there is no CPU path); prints
    the card's name and power limit.
 2. Build: compiles the hand-written sm_90a kernels from
-   ``correrender_tpu_torch/ops/cuda/csrc`` (nvcc, into build/kernels/).
+   ``correrender_tpu_torch/ops/cuda/csrc`` (one nvcc per source, all at
+   once, into build/kernels/).
 3. Kernels against their plain PyTorch versions on the card: K1 Pearson,
    K2 classify (NaN, degenerate domain, every slice orientation), K3
    composite (with and without kstop), B3 classify_volume (NaN,
    degenerate domain), B5 exact marcher at 64³ and 512×288 (six
    orientations, NaN ignore and yellow, restriction in both metrics, a
-   depth-limit plane, a rotated model matrix).
+   depth-limit plane, a rotated model matrix); B7 Spearman, B8 Kendall,
+   B9 KSG and B10 banded KSG at n = 37, 250 and 1000 with ties, a
+   repeated member, a NaN voxel and a zero-variance voxel, KSG with both
+   estimators, per-point counts equal, B10 also with a band of 16 (most
+   points repaired), against B9, and on mass ties without noise.
 4. BASELINE config 1 at its own size (128×128×32, 100 members,
    1280×720): ``render_correlation_fast`` through the kernels against the
    same function on the CPU (one thread), where it runs the plain
@@ -31,18 +36,36 @@ Phases, each asserting; any failure exits non-zero:
 7. Exact headline: the same 250³ × 100 stack, the K1 field, then
    ``dvr_render_exact`` at 1920×1080, voxel step 0.1 (q = 10), with
    config 1's camera and control-point TF: counted launches, B5 against
-   its plain version on the same prepared inputs, the median of 5 frame
-   times, B5's time beside the plain version's (3 plain runs), the peak
-   memory, and a ``torch.profiler`` split of 3 frames.
+   its plain version on the same prepared inputs (which also counts the
+   samples the rays took), the median of 5 frame times, B5's time beside
+   the plain version's (3 plain runs), the peak memory, and a
+   ``torch.profiler`` split of 3 frames.
 8. Restricted and depth-clipped fast frame at the headline: the field →
    ``classify_volume`` (B3) × ``restriction_mask`` (radius 0.1 around the
    reference point) → ``dvr_shearwarp(classified=, depth_limit=)`` (K3
    with kstop): counted launches, B3 against its plain version and both
    times.
-9. Eye-inside frame: a camera inside the volume through
+9. The measure switch on the same stack: the Spearman, Kendall and KSG
+   fields through ``correlate_field`` (B7, B8, B10) with counted
+   launches, each held to its plain version on every 997th voxel, the
+   median of 5 field times; then a 1920×1080 KSG frame through
+   ``render_correlation_fast(..., "mi_kraskov")`` (B10, K2, K3, warp):
+   counted launches, the stage split and the peak memory.
+10. Eye-inside frame: a camera inside the volume through
    ``render_correlation_fast`` (→ ``dvr_render``, no kernel) at config
    1's own size, against the same marcher run on the CPU (one thread,
    every 24th row of the same rays), and its time.
+11. BASELINE configs 2 (96×64×32 × 250, Spearman and Kendall) and 3
+   (48×48×24 × 500, binned MI and KSG) through their own entry points,
+   with counted launches: the fields they timed against
+   ``correlate_field`` on the CPU (one thread) on every 16th voxel, and
+   their median of 5 field times.
+12. 48³ × 1000 members (the JAX bench's KSG size): the Spearman, Kendall
+   and KSG fields through ``correlate_field`` (B7, B8, B10) once each
+   with counted launches, and B9 through ``mi_ksg_cuda`` (no entry point
+   reaches it: B10 repairs in place); the field times, each kernel
+   against its plain version on a 4096-voxel subset with both times and
+   the bound, B10's repaired share, binned MI's torch time.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -51,6 +74,7 @@ The second-to-last line is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -70,6 +94,25 @@ ATOL_CLASSIFY_VOLUME = 1e-6  # ROADMAP B3: the f32 classify
 ATOL_EYE_INSIDE = 1e-4  # the same torch march on the card and the CPU
 MAX_ABS_FRAME = 1e-2
 MIN_SSIM_FRAME = 0.995
+# B7 and B8 against their plain versions: both assemble from exact integer
+# sums, so rho agrees to the float32 rounding of one float64 quotient and
+# tau exactly.
+ATOL_SPEARMAN = 1e-7
+ATOL_KENDALL = 0.0
+# B9 against its plain version, and B10 against B9 and its plain version:
+# equal per-point counts, so the fields differ only by the order of the
+# f32 psi sums (tests/test_pallas.py:68 holds B9 to JAX at 1e-5).
+ATOL_KSG = 1e-5
+# A field on the card against the same correlate_field on the CPU, where
+# every wrapper runs its plain version (config 2 and 3 sizes): the
+# kernels' bars, and for binned MI (torch on both) its einsum's f32 sums.
+ATOL_FIELD = {"spearman": ATOL_SPEARMAN, "kendall": 1e-6,
+              "mi_binned": 1e-5, "mi_kraskov": ATOL_KSG}
+
+# Published peaks of one H100 SXM at its full 700 W: HBM bytes/s and
+# float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 KERNELS = {
     "pearson": ("correrender_tpu_torch/ops/cuda/csrc/pearson.cu",
@@ -83,6 +126,14 @@ KERNELS = {
                      "correrender_tpu/ops/pallas/raymarch_kernel.py:1125"),
     "classify_volume": ("correrender_tpu_torch/ops/cuda/csrc/classify.cu",
                         "correrender_tpu/ops/pallas/classify_kernel.py:49"),
+    "spearman": ("correrender_tpu_torch/ops/cuda/csrc/spearman.cu",
+                 "correrender_tpu/ops/pallas/spearman_kernel.py:121"),
+    "kendall": ("correrender_tpu_torch/ops/cuda/csrc/kendall.cu",
+                "correrender_tpu/ops/pallas/kendall_kernel.py:126"),
+    "mi_ksg": ("correrender_tpu_torch/ops/cuda/csrc/ksg.cu",
+               "correrender_tpu/ops/pallas/ksg_kernel.py:183"),
+    "mi_ksg_banded": ("correrender_tpu_torch/ops/cuda/csrc/ksg_banded.cu",
+                      "correrender_tpu/ops/pallas/ksg_banded.py:543"),
 }
 
 # The kernels of the shear-warp frame (phases 4-5).
@@ -91,17 +142,34 @@ HEADLINE_SIDE, HEADLINE_MEMBERS = 250, 100
 HEADLINE_IMAGE = (1920, 1080)
 EXACT_KERNEL_SIDE, EXACT_KERNEL_IMAGE = 64, (512, 288)
 CONFIG1_GRID, CONFIG1_IMAGE = (128, 128, 32), (1280, 720)  # (xs, ys, zs)
+MEASURE_KERNEL_N = (37, 250, 1000)
+CONFIG2_GRID, CONFIG2_MEMBERS = (96, 64, 32), 250
+CONFIG3_GRID, CONFIG3_MEMBERS = (48, 48, 24), 500
+CONFIG_CHECK_STEP = 16  # configs 2-3: every 16th voxel against the CPU
+MI_GRID, MI_MEMBERS = 48, 1000  # the JAX bench's KSG size (bench.py:46-47)
+MI_SUBSET = 4096  # voxels for the plain versions at 48^3 x 1000
+GRID_CHECK_STEP = 997  # the 250^3 x 100 fields: every 997th voxel
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    over HBM's rate and the float32 operations over the f32 peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
-    """Max |a − b| over finite entries; NaN must sit in the same places."""
+    """Max |a − b| over the non-NaN entries (equal infinities count 0);
+    NaN must sit in the same places."""
     a = a.float()
     b = b.float()
     nan_a, nan_b = torch.isnan(a), torch.isnan(b)
     assert torch.equal(nan_a, nan_b), "NaN positions differ"
     if bool(nan_a.all()):
         return 0.0
-    return float((a[~nan_a] - b[~nan_b]).abs().max())
+    a, b = a[~nan_a], b[~nan_b]
+    return float(torch.where(a == b, 0.0, (a - b).abs()).max())
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -143,7 +211,8 @@ def phase_build() -> None:
     print(f"[build] {path.name} in {time.perf_counter() - t0:.3f} s")
     entries = ("pearson_kernel", "classify_cf_kernel",
                "classify_volume_kernel", "composite_kernel",
-               "raymarch_dvr_kernel")
+               "raymarch_dvr_kernel", "spearman_kernel", "kendall_kernel",
+               "ksg_kernel", "ksg_banded_kernel")
     entry = "?"
     for line in log.splitlines():
         if "entry function" in line:  # ptxas names the kernel first
@@ -505,8 +574,22 @@ def phase_headline(dev, card: str, errs: dict, stack: torch.Tensor):
           f"{peak / 2**30:.2f} GiB")
     stage_of = {"pearson": "field", "classify_to_cf": "classify",
                 "shearwarp_composite": "composite"}
+    vox = field.numel()
+    samples = cf.shape[0] * geo["hi_res"] * geo["wi_res"]
+    bounds = {
+        # K1: the stack read once, the field written; 5 flops a member.
+        "pearson": bound(4 * vox * n + 4 * vox + 4 * n, 5 * vox * n),
+        # K2: the field read, bf16 RGBA written; about 14 flops a voxel.
+        "classify_to_cf": bound(12 * vox + 16 * tf.lut.shape[0], 14 * vox),
+        # K3: every slice's bf16 RGBA read once, rgb + alpha written; a
+        # bilinear RGBA tap, opacity correction and OVER (about 36 flops)
+        # per (intermediate pixel, slice).
+        "shearwarp_composite": bound(
+            cf.numel() * 2 + 20 * geo["hi_res"] * geo["wi_res"],
+            36 * samples),
+    }
     stats = {k: (launches[k], med[stage_of[k]], med_plain[stage_of[k]])
-             for k in FAST_PATH}
+             + bounds[k] for k in FAST_PATH}
     return stats, frame
 
 
@@ -590,12 +673,12 @@ def phase_exact(dev, card: str, errs: dict, stack: torch.Tensor):
     args = (prep, cam, tf, image_size, plan)
     rgb, a = dvr_raymarch(*args)
     torch.cuda.synchronize()
-    plain_times = []
+    plain_times, samples = [], []
     for i in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = dvr_raymarch_plain(*args)
+        out = dvr_raymarch_plain(*args, samples=samples if i == 0 else None)
         end.record()
         torch.cuda.synchronize()
         plain_times.append(start.elapsed_time(end))
@@ -623,8 +706,15 @@ def phase_exact(dev, card: str, errs: dict, stack: torch.Tensor):
           f"prepare_raymarch_volume {prep_ms:.3f} ms")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[exact {card}] peak max_memory_allocated {peak / 2**30:.2f} GiB")
+    # B5's bound: the prepared volume read once and the image written; a
+    # trilinear sample, the TF's hinges, the opacity and OVER (about 50
+    # flops) for each sample the rays took (counted by the plain march).
+    print(f"[exact] samples taken: {samples[0]} "
+          f"({samples[0] / (image_size[0] * image_size[1]):.1f} per ray)")
+    b5_bound = bound(prep.numel() * 4 + 16 * image_size[0] * image_size[1],
+                     50 * samples[0])
     return {"raymarch_dvr": (launches["raymarch_dvr"], kernel_ms,
-                             plain_ms)}, frame
+                             plain_ms) + b5_bound}, frame
 
 
 def phase_restricted(dev, card: str, errs: dict,
@@ -690,8 +780,11 @@ def phase_restricted(dev, card: str, errs: dict,
     print(f"[restricted {card}] B3 classify_volume {b3_ms:.3f} ms, plain "
           f"{b3_plain_ms:.3f} ms ({side}^3 field -> "
           f"{side**3 * 16 / 1e6:.0f} MB of RGBA)")
+    # B3: the field read, f32 RGBA written; about 14 flops a voxel.
+    b3_bound = bound(20 * field.numel() + 16 * tf.lut.shape[0],
+                     14 * field.numel())
     return {"classify_volume": (launches["classify_volume"], b3_ms,
-                                b3_plain_ms)}
+                                b3_plain_ms) + b3_bound}
 
 
 def phase_eye_inside(dev, card: str) -> None:
@@ -747,10 +840,341 @@ def phase_eye_inside(dev, card: str) -> None:
     print(f"[eye inside {card}] render_correlation_fast -> dvr_render "
           f"{frame_ms:.3f} ms (median of 3; plain torch, no kernel)")
 
+def time_once(fn) -> float:
+    """One CUDA-event timing of ``fn()`` (no warm-up: plain torch)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def measure_inputs(n: int, gen, dev):
+    """``(96, n)`` series with correlated voxels, ties (quantized values),
+    a repeated member, a NaN voxel and a zero-variance voxel; and two
+    reference series, continuous and quantized."""
+    x = torch.randn(n, generator=gen, device=dev)
+    y = torch.randn((96, n), generator=gen, device=dev)
+    y[:16] = 0.8 * x + 0.6 * y[:16]
+    y[16:40] = torch.round(y[16:40] * 2.0) / 2.0
+    y[40:48, 5] = y[40:48, 3]
+    y[48, n // 2] = float("nan")
+    y[49] = 1.0
+    return y, {"continuous": x, "quantized": torch.round(x * 2.0) / 2.0}
+
+
+def phase_kernels_measures(dev, errs: dict) -> None:
+    """B7-B10 against their plain versions, and B10 against B9."""
+    from correrender_tpu_torch.ops.cuda.kendall_kernel import (
+        kendall_cuda, kendall_plain)
+    from correrender_tpu_torch.ops.cuda.ksg_banded import (
+        mi_ksg_banded, mi_ksg_banded_plain)
+    from correrender_tpu_torch.ops.cuda.ksg_kernel import (
+        mi_ksg_cuda, mi_ksg_plain)
+    from correrender_tpu_torch.ops.cuda.spearman_kernel import (
+        spearman_cuda, spearman_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def ksg_cases(y, x, label, use_noise=True):
+        for est in (1, 2):
+            kw = dict(estimator=est, use_noise=use_noise)
+            mi9, c9 = mi_ksg_cuda(y, x, with_counts=True, **kw)
+            torch.cuda.synchronize()
+            mip, cp = mi_ksg_plain(y, x, with_counts=True, **kw)
+            ok = ~torch.isnan(mi9)
+            assert torch.equal(c9[ok], cp[ok]), (label, est, "B9 counts")
+            err9 = max_abs(mi9, mip)
+            assert err9 <= ATOL_KSG, (label, est, err9)
+            errs["mi_ksg"] = max(errs["mi_ksg"], err9)
+            for w in (192, 16):
+                mi10, info = mi_ksg_banded(y, x, w_band=w, with_counts=True,
+                                           **kw)
+                torch.cuda.synchronize()
+                mi10p = mi_ksg_banded_plain(y, x, w_band=w, **kw)
+                assert torch.equal(info["counts"][ok], c9[ok]), (
+                    label, est, w, "B10 counts")
+                err10 = max(max_abs(mi10, mi9), max_abs(mi10, mi10p))
+                assert err10 <= ATOL_KSG, (label, est, w, err10)
+                errs["mi_ksg_banded"] = max(errs["mi_ksg_banded"], err10)
+                print(f"[B9/B10 ksg] {label} est {est} W {w}: counts equal, "
+                      f"|B9-plain| {err9:.3e}, |B10-B9|, |B10-plain| "
+                      f"<= {err10:.3e} (bar {ATOL_KSG}), B10 repaired "
+                      f"{int(info['repaired'].sum())} of {y.numel()} points")
+
+    for n in MEASURE_KERNEL_N:
+        y, refs = measure_inputs(n, gen, dev)
+        for label, x in refs.items():
+            case = f"n={n} {label} ref"
+            got = spearman_cuda(y, x)
+            torch.cuda.synchronize()
+            err = max_abs(got, spearman_plain(y, x))
+            assert err <= ATOL_SPEARMAN, (case, err)
+            assert bool(torch.isnan(got[49])), case  # zero variance
+            errs["spearman"] = max(errs["spearman"], err)
+            got = kendall_cuda(y, x)
+            torch.cuda.synchronize()
+            err = max_abs(got, kendall_plain(y, x))
+            assert err <= ATOL_KENDALL, (case, err)
+            assert bool(torch.isnan(got[48])), case  # the NaN voxel
+            ksg_cases(y, x, case)
+        print(f"[B7 spearman, B8 kendall] n={n}: max|kernel-plain| "
+              f"{errs['spearman']:.3e} (bar {ATOL_SPEARMAN}), "
+              f"{errs['kendall']:.3e} (bar {ATOL_KENDALL})")
+    # Mass ties without noise: three levels, whole tie classes at every
+    # k-th distance.
+    y, refs = measure_inputs(250, gen, dev)
+    ksg_cases(torch.clamp(torch.round(y), -1.0, 1.0),
+              torch.clamp(torch.round(refs["continuous"]), -1.0, 1.0),
+              "n=250 mass ties, no noise", use_noise=False)
+
+
+def phase_measures_grid(dev, card: str, errs: dict, stack: torch.Tensor,
+                        stats: dict) -> None:
+    """Spearman, Kendall and KSG fields of the resident 250^3 x 100 stack,
+    then a 1080p KSG frame through render_correlation_fast."""
+    from correrender_tpu_torch.app.baseline_configs import config1_camera
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.ops.cuda.kendall_kernel import kendall_plain
+    from correrender_tpu_torch.ops.cuda.ksg_banded import (
+        mi_ksg_banded_plain)
+    from correrender_tpu_torch.ops.cuda.spearman_kernel import (
+        spearman_plain)
+    from correrender_tpu_torch.ops.mi_ksg import (
+        maximum_mutual_information_kraskov)
+    from correrender_tpu_torch.render.pipeline import (
+        reference_series, render_correlation_fast)
+    from correrender_tpu_torch.render.tf import TransferFunction
+
+    side, n = stack.shape[0], stack.shape[-1]
+    ref_point = (side // 4, side // 4, side // 2)
+    ref = reference_series(stack, ref_point)
+    series = stack.reshape(-1, n)
+    idx = torch.arange(0, series.shape[0], GRID_CHECK_STEP, device=dev)
+    runs = (("spearman", "spearman", spearman_plain, ATOL_SPEARMAN),
+            ("kendall", "kendall", kendall_plain, ATOL_KENDALL),
+            ("mi_kraskov", "mi_ksg_banded", mi_ksg_banded_plain, ATOL_KSG))
+    for measure, kernel, plain, atol in runs:
+        correlate_field(stack, ref, measure)  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        field = correlate_field(stack, ref, measure)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        assert launches[kernel] > 0, (measure, launches)
+        err = max_abs(field.reshape(-1)[idx], plain(series[idx], ref))
+        assert err <= atol, (measure, err)
+        errs[kernel] = max(errs[kernel], err)
+        ms = median_ms(lambda: correlate_field(stack, ref, measure))
+        print(f"[grid {card}] {side}^3 x {n} {measure}: field {ms:.3f} ms "
+              f"(median of 5, {series.shape[0] / ms * 1e3:.4g} voxels/s), "
+              f"launches {launches[kernel]}; max|kernel-plain| {err:.3e} "
+              f"over every {GRID_CHECK_STEP}th voxel (bar {atol})")
+        stats[f"grid {measure}"] = ms
+        del field
+
+    image_size, scale = HEADLINE_IMAGE, 0.75
+    cam = config1_camera()
+    tf = TransferFunction.from_colormap(
+        "viridis", domain=(0.0, maximum_mutual_information_kraskov(3, n)),
+        opacity_points=((0.0, 0.0), (1.0, 0.8)), device=dev)
+
+    def frame(on_stage=None):
+        return render_correlation_fast(stack, ref_point, cam, tf,
+                                       "mi_kraskov", image_size=image_size,
+                                       intermediate_scale=scale,
+                                       on_stage=on_stage)
+
+    frame()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    img = frame()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[ksg frame] main-path launches: {launches}")
+    assert all(launches[k] > 0 for k in (
+        "mi_ksg_banded", "classify_to_cf", "shearwarp_composite")), launches
+    assert img.shape == image_size[::-1] + (4,)
+    assert bool(torch.isfinite(img).all())
+    runs = []
+    for _ in range(5):
+        clock = StageClock()
+        frame(clock)
+        runs.append(clock.times())
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[ksg frame {card}] {side}^3 x {n}, {image_size[0]}x"
+          f"{image_size[1]}: " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in med.items())
+          + f" (median of 5; field = B10); peak max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
+
+
+def phase_configs23(dev, card: str, errs: dict) -> None:
+    """BASELINE configs 2 and 3 through their own entry points, with
+    counted launches: the very fields they timed, held to
+    correlate_field on the CPU (the plain versions) on every 16th voxel,
+    and their times (median of 5)."""
+    from correrender_tpu_torch.app.baseline_configs import (
+        config2_rank_correlations, config3_mutual_information)
+    from correrender_tpu_torch.calculators.correlation import (
+        _nan_bounds, correlate_field)
+    from correrender_tpu_torch.ops.cuda import _build
+
+    kernel_of = {"spearman": "spearman", "kendall": "kendall",
+                 "mi_kraskov": "mi_ksg_banded", "mi_binned": None}
+    ms_key = {"spearman": "spearman_ms", "kendall": "kendall_ms",
+              "mi_binned": "binned_ms", "mi_kraskov": "ksg_ms"}
+    threads = torch.get_num_threads()
+    for config, grid, members in (
+            (config2_rank_correlations, CONFIG2_GRID, CONFIG2_MEMBERS),
+            (config3_mutual_information, CONFIG3_GRID, CONFIG3_MEMBERS)):
+        _build.reset_launch_counts()
+        res = config(grid=grid, members=members, device=dev)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        stack, ref = res["stack"], res["ref"]
+        n = stack.shape[-1]
+        sub = stack.reshape(-1, n)[::CONFIG_CHECK_STEP].cpu()
+        # Binned MI's default bounds on the card: the global ranges of
+        # the whole ref and stack, as 0-d tensors; the CPU takes the same.
+        bounds = tuple((lo.cpu(), hi.cpu())
+                       for lo, hi in (_nan_bounds(ref), _nan_bounds(stack)))
+        for measure, field in res["fields"].items():
+            kernel = kernel_of[measure]
+            if kernel:
+                assert launches[kernel] > 0, (res["config"], launches)
+            kw = {"mi_bounds": bounds} if measure == "mi_binned" else {}
+            torch.set_num_threads(1)  # see ROADMAP C
+            try:
+                t0 = time.perf_counter()
+                want = correlate_field(sub, ref.cpu(), measure, **kw)
+                cpu_s = time.perf_counter() - t0
+            finally:
+                torch.set_num_threads(threads)
+            err = max_abs(field.reshape(-1)[::CONFIG_CHECK_STEP].cpu(), want)
+            assert err <= ATOL_FIELD[measure], (res["config"], measure, err)
+            if kernel:
+                errs[kernel] = max(errs[kernel], err)
+            ms = res[ms_key[measure]]
+            print(f"[{res['config']} {card}] {tuple(stack.shape)} {measure}: "
+                  f"field {ms:.3f} ms (median of 5, "
+                  f"{stack[..., 0].numel() / ms * 1e3:.4g} voxels/s), "
+                  f"launches {launches[kernel] if kernel else 'none (torch)'}"
+                  f"; card vs CPU {err:.3e} over every {CONFIG_CHECK_STEP}th"
+                  f" voxel (bar {ATOL_FIELD[measure]}; CPU 1 thread "
+                  f"{cpu_s:.1f} s)")
+        del res, stack, ref
+
+
+def phase_members(dev, card: str, errs: dict, stats: dict) -> None:
+    """48^3 voxels x 1000 members (the JAX bench's KSG size), drawn on the
+    card: the Spearman, Kendall and KSG fields through correlate_field
+    (B7, B8, B10), each once with counted launches and then its median
+    field time; B9 the same way through its own wrapper, which no entry
+    point reaches; each kernel against its plain version on a 4096-voxel
+    subset, with both times and the bound."""
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.ops.cuda.kendall_kernel import (
+        kendall_cuda, kendall_plain)
+    from correrender_tpu_torch.ops.cuda.ksg_banded import (
+        band_width, mi_ksg_banded, mi_ksg_banded_plain)
+    from correrender_tpu_torch.ops.cuda.ksg_kernel import (
+        mi_ksg_cuda, mi_ksg_plain)
+    from correrender_tpu_torch.ops.cuda.spearman_kernel import (
+        spearman_cuda, spearman_plain)
+
+    side, n, k = MI_GRID, MI_MEMBERS, 3
+    gen = torch.Generator(device=dev).manual_seed(3)
+    stack = torch.randn((side, side, side, n), generator=gen, device=dev)
+    ref = stack[side // 2, side // 2, side // 2].clone()
+    series = stack.reshape(-1, n)
+    sub = series[:MI_SUBSET]
+    vs = sub.shape[0]
+    kernels = {  # kernel: (correlate_field's measure, wrapper, plain, bar)
+        "spearman": ("spearman", spearman_cuda, spearman_plain,
+                     ATOL_SPEARMAN),
+        "kendall": ("kendall", kendall_cuda, kendall_plain, ATOL_KENDALL),
+        "mi_ksg": (None, mi_ksg_cuda, mi_ksg_plain, ATOL_KSG),
+        "mi_ksg_banded": ("mi_kraskov", mi_ksg_banded, mi_ksg_banded_plain,
+                          ATOL_KSG),
+    }
+    # The least work of each function on these inputs, whatever the
+    # kernel's algorithm: the series read once and the (V,) field
+    # written; a comparison sort of n members is n·log2(n)
+    # compare-exchanges of 2 operations.
+    log2n = math.log2(n)
+    io_bytes = 4 * vs * n + 4 * n + 4 * vs
+    sort_ops = 2.0 * vs * n * log2n
+    # KSG: sort y (x is sorted once for all voxels); per point the k+1
+    # nearest Chebyshev distances (4 operations each) and the two
+    # marginal counts by binary search (2·log2(n) operations each).
+    ksg_bound = bound(io_bytes,
+                      sort_ops + vs * n * (4.0 * (k + 1) + 4.0 * log2n))
+    bounds = {
+        # Sort, the tie runs' ranks and the three rank moments (about 8
+        # operations a member).
+        "spearman": bound(io_bytes, sort_ops + 8.0 * vs * n),
+        # Knight's O(n log n) tau-b: a merge sort of y in x's order
+        # counting its exchanges, and the tie runs (about 4 operations a
+        # member).
+        "kendall": bound(io_bytes, sort_ops + 4.0 * vs * n),
+        # B9 and B10 compute the same function: one bound.
+        "mi_ksg": ksg_bound,
+        "mi_ksg_banded": ksg_bound,
+    }
+    for name, (measure, fn, plain, atol) in kernels.items():
+        if measure:
+            def run(measure=measure):
+                return correlate_field(stack, ref, measure)
+        else:
+            def run(fn=fn):
+                return fn(stack, ref)
+        run()  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        count = _build.LAUNCHES[name]
+        assert count > 0, (name, dict(_build.LAUNCHES))
+        full_ms = median_ms(run)
+        sub_ms = median_ms(lambda: fn(sub, ref))
+        got = fn(sub, ref)
+        plain_ms = time_once(lambda: plain(sub, ref))
+        err = max_abs(got, plain(sub, ref))
+        assert err <= atol, (name, err)
+        errs[name] = max(errs[name], err)
+        if measure:
+            path = f"main path correlate_field(..., {measure!r})"
+        else:
+            path = "mi_ksg_cuda, not on the main path (B10 repairs in place)"
+        # The kernels line counts the main path's launches only.
+        stats[name] = ((count if measure else 0), sub_ms, plain_ms) + (
+            bounds[name])
+        print(f"[members {card}] {side}^3 x {n} {name} through {path}: "
+              f"launches {count}, field {full_ms:.3f} ms (median of 5, "
+              f"{series.shape[0] / full_ms * 1e3:.4g} voxels/s); {vs}-voxel "
+              f"subset: kernel {sub_ms:.3f} ms, plain {plain_ms:.3f} ms (one "
+              f"run), bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
+              f"max|kernel-plain| {err:.3e} (bar {atol})")
+    _, info = mi_ksg_banded(sub, ref, with_counts=True)
+    repaired = int(info["repaired"].sum())
+    print(f"[members] B10 repaired {repaired} of {vs * n} points "
+          f"({100 * repaired / (vs * n):.2f}%) with W = {band_width(n, k)}")
+    ms = median_ms(lambda: correlate_field(stack, ref, "mi_binned"))
+    print(f"[members {card}] mi_binned (torch einsum, no kernel) field "
+          f"{ms:.3f} ms (median of 5)")
+
 
 def main() -> None:
     from correrender_tpu_torch.utils.fixtures import synth_box_stack
 
+    t_start = time.perf_counter()
     name, smi = phase_device()
     card = smi
     dev = torch.device("cuda", 0)
@@ -758,6 +1182,7 @@ def main() -> None:
     errs = {k: 0.0 for k in KERNELS}
     phase_kernels(dev, errs)
     phase_kernels_exact(dev, errs)
+    phase_kernels_measures(dev, errs)
     phase_config1(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     side = HEADLINE_SIDE
@@ -776,12 +1201,24 @@ def main() -> None:
         "K1 pearson_kernel": "pearson_kernel"},
         ("B5 raymarch_dvr_kernel", "K1 pearson_kernel"))
     stats.update(phase_restricted(dev, card, errs, stack))
-    del stack, frame, exact_frame
+    del frame, exact_frame
+    phase_measures_grid(dev, card, errs, stack, stats)
+    del stack
     phase_eye_inside(dev, card)
+    phase_configs23(dev, card, errs)
+    phase_members(dev, card, errs, stats)
+    print(f"[done {card}] chip_smoke.py phases took "
+          f"{time.perf_counter() - t_start:.1f} s")
+    # No single PyTorch call computes any of these functions (a field of
+    # one correlation measure against one series, a LUT classification
+    # into a slice layout, a shear-warp composite, a plane-order march),
+    # so library_ms is null throughout.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": stats[k][0],
-         "max_abs_err": errs[k], "ms": stats[k][1], "plain_ms": stats[k][2]}
+         "max_abs_err": errs[k], "ms": stats[k][1], "plain_ms": stats[k][2],
+         "bound_ms": stats[k][3], "bound_by": stats[k][4],
+         "library_ms": None}
         for k in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ONE ``nvcc`` call for ``sm_90a``
-into a shared library with a plain C interface, at first use, under
-``build/kernels/`` at the root of the checkout. The library name holds
-a hash of the sources, so an edited kernel is rebuilt and a stale one is
-never loaded. The library is bound with ``ctypes``; every C entry takes
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+call, all of them at once, and linked into one shared library with a
+plain C interface, at first use, under ``build/kernels/`` at the root
+of the checkout. The library name holds a hash of the sources and
+headers, so an edited kernel is rebuilt and a stale one is never
+loaded. The library is bound with ``ctypes``; every C entry takes
 the launching stream and returns ``cudaGetLastError()``, which
 :func:`check` turns into an exception.
 
@@ -30,7 +31,8 @@ _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 LAUNCHES = {"pearson": 0, "classify_to_cf": 0, "shearwarp_composite": 0,
-            "raymarch_dvr": 0, "classify_volume": 0}
+            "raymarch_dvr": 0, "classify_volume": 0, "spearman": 0,
+            "kendall": 0, "mi_ksg": 0, "mi_ksg_banded": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +60,17 @@ _SIGNATURES = {
     "correrender_raymarch_dvr": [
         _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P,
     ],
+    # series, xrank2, sums, v, n
+    "correrender_spearman": [_P, _P, _P, _L, _I, _I, _P],
+    # series, ref, counts, v, n
+    "correrender_kendall": [_P, _P, _P, _L, _I, _I, _P],
+    # series, x_noised, y_noise, psi_sum, counts, v, n, k, estimator
+    "correrender_mi_ksg": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # series, perm, xs_sorted, y_noise, psi_sum, counts, repaired, v, n,
+    # w_band, k, estimator
+    "correrender_mi_ksg_banded": [
+        _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P,
+    ],
 }
 
 
@@ -72,7 +85,7 @@ def _sources() -> list[Path]:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for path in _sources():
+    for path in sorted(_CSRC.glob("*.cu*")):  # the .cuh headers too
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(_ARCH_FLAGS).encode())
@@ -102,20 +115,39 @@ def build() -> tuple[Path, str]:
         return lib, log_path.read_text() if log_path.exists() else ""
     nvcc = _nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [
-        nvcc, *_ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-        "-o", str(tmp), *(str(p) for p in _sources()),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    log_path.write_text(proc.stdout + proc.stderr)
+    tag = f"{lib.stem}.{os.getpid()}"
+    # One nvcc per source, all started together, then one link.
+    objects, procs = [], []
+    for src in _sources():
+        obj = _BUILD_DIR / f"{tag}.{src.stem}.o"
+        objects.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *_ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+             "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    log = ""
+    failed = []
+    for src, proc in zip(_sources(), procs):
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+    tmp = lib.with_name(f"{tag}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *_ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *(str(o) for o in objects)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stdout}")
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
-    return lib, proc.stdout + proc.stderr
+    return lib, log
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,3 +184,42 @@ def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+#: The rank and MI kernels hold the reference series and each warp's
+#: member series in shared memory (ksg_common.cuh); B10 also a sorted
+#: copy and a repair queue, which fit one warp's block up to n = 12288.
+MAX_MEMBERS = 12288
+
+
+def member_series(kernel: str, stack: torch.Tensor, ref: torch.Tensor):
+    """Check a ``(..., n)`` float32 stack against an ``(n,)`` float32
+    reference on one device; return the ``(V, n)`` view and the leading
+    shape. On a CUDA device, also the kernels' own limits."""
+    n = stack.shape[-1]
+    if stack.dtype != torch.float32 or ref.dtype != torch.float32:
+        raise TypeError(f"{kernel} takes float32 stack and ref")
+    if tuple(ref.shape) != (n,):
+        raise ValueError(f"ref has shape {tuple(ref.shape)}, expected ({n},)")
+    if ref.device != stack.device:
+        raise ValueError("stack and ref must lie on one device")
+    if stack.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {kernel} kernel for device {stack.device}")
+    if stack.device.type == "cuda":
+        require_cuda_tensor(stack, "stack", torch.float32, stack.device)
+        require_cuda_tensor(ref, "ref", torch.float32, stack.device)
+        if n > MAX_MEMBERS:
+            raise ValueError(f"{kernel}: n={n} members exceed the kernel's "
+                             f"shared-memory limit of {MAX_MEMBERS}")
+    return stack.reshape(-1, n), stack.shape[:-1]
+
+
+#: Working-set budget of the plain versions' voxel chunks.
+PLAIN_BUDGET_BYTES = 256 << 20
+
+
+def voxel_chunks(v: int, per_voxel_bytes: int,
+                 budget: int = PLAIN_BUDGET_BYTES):
+    """Slices of ``range(v)`` whose working sets fit ``budget``."""
+    step = max(budget // max(per_voxel_bytes, 1), 1)
+    return [slice(s, min(s + step, v)) for s in range(0, v, step)]

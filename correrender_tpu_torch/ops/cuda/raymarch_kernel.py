@@ -334,10 +334,12 @@ def _inputs(vol_prepared, camera, tf, image_size, plan, attenuation,
 
 def dvr_raymarch_plain(vol_prepared, camera, tf, image_size, plan,
                        attenuation=100.0, nan_mode="ignore",
-                       depth_limit=None, restriction=None):
+                       depth_limit=None, restriction=None, samples=None):
     """Plain version of B5: the same march as a plane-order loop over
     all rays at once, with the per-ray exit as a mask. Returns
-    premultiplied ``(rgb (H, W, 3), a (H, W))``.
+    premultiplied ``(rgb (H, W, 3), a (H, W))``. A list passed as
+    ``samples`` receives the number of samples the rays took (for a
+    kernel's bound: the work these inputs need).
 
     The scalars that decide whether a sample counts (γ, and the ball's
     axial distance) are float32 host values, and the per-ray tests are
@@ -357,6 +359,7 @@ def dvr_raymarch_plain(vol_prepared, camera, tf, image_size, plan,
     rgb = torch.zeros(inv_da.shape + (3,), dtype=torch.float32,
                       device=inv_da.device)
     acc_a = torch.zeros_like(inv_da)
+    taken = torch.zeros((), dtype=torch.int64, device=inv_da.device)
     for kk in range(planes + 1):
         lo, hi = flat[max(kk - 1, 0)], flat[min(kk, planes - 1)]
         gbase = g0 + f32(kk - 1) * gk
@@ -378,6 +381,8 @@ def dvr_raymarch_plain(vol_prepared, camera, tf, image_size, plan,
                     inside = (float(d_a * d_a) + d_s * d_s) + d_l * d_l <= (
                         float(r_rad * r_rad))
                 active = active & inside
+            if samples is not None:
+                taken += active.sum()
             uc = torch.clamp(raw_u, 0.0, float(u_max))
             vc = torch.clamp(raw_v, 0.0, float(v_max))
             iu = torch.clamp(uc.to(torch.long), max=n_sub - 1)
@@ -409,6 +414,8 @@ def dvr_raymarch_plain(vol_prepared, camera, tf, image_size, plan,
             w = (1.0 - acc_a) * alpha
             rgb = rgb + w[..., None] * torch.stack(c[:3], dim=-1)
             acc_a = acc_a + w
+    if samples is not None:
+        samples.append(int(taken))
     return rgb, acc_a
 
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``correrender_tpu/render/pipeline.py``. Moving the
 reference point re-runs the whole chain on the device: gather the
-reference series, the Pearson field (K1), then either the shear-warp
-renderer (:func:`render_correlation_fast`: classification K2, composite
+reference series, the correlation field (K1 for Pearson; B7, B8 and B10
+for Spearman, Kendall and KSG), then either the shear-warp renderer (:func:`render_correlation_fast`: classification K2, composite
 K3 and the warp) or the fixed-step marcher (:func:`render_correlation`).
 """
 
@@ -47,6 +47,7 @@ def render_correlation_fast(
     background=(0.0, 0.0, 0.0, 1.0),
     intermediate_scale: float = 0.75,
     on_stage=None,
+    **measure_kwargs,
 ) -> torch.Tensor:
     """Correlation field → shear-warp DVR (the interactive fast path).
 
@@ -58,12 +59,15 @@ def render_correlation_fast(
       on_stage: optional ``on_stage(name, result)`` called as each stage
         has been enqueued: ``"field"`` (the correlation field), then the
         stages of :func:`dvr_shearwarp`. For stage timing.
+      measure_kwargs: the measure's settings for :func:`correlate_field`
+        (``num_bins``, ``k``, ``kraskov_estimator``, ``absolute``,
+        ``mi_bounds``).
 
     Returns:
       ``(H, W, 4)`` straight-alpha RGBA on the stack's device.
     """
     ref = reference_series(stack, ref_point)
-    field = correlate_field(stack, ref, measure)
+    field = correlate_field(stack, ref, measure, **measure_kwargs)
     if on_stage is not None:
         on_stage("field", field)
     return dvr_shearwarp(
@@ -88,6 +92,7 @@ def render_correlation(
     voxel_step: float = 0.1,
     attenuation: float = 100.0,
     background=(0.0, 0.0, 0.0, 1.0),
+    **measure_kwargs,
 ) -> torch.Tensor:
     """Correlation field → the fixed-step DVR marcher
     (:func:`render.dvr.dvr_composite`) over the default render box; see
@@ -102,7 +107,7 @@ def render_correlation(
     width, height = image_size
     origin, directions = camera.rays(width, height, device=stack.device)
     field = correlate_field(stack, reference_series(stack, ref_point),
-                            measure)
+                            measure, **measure_kwargs)
     return dvr_composite(
         field, origin, directions, box_min, box_max, transfer_function.lut,
         transfer_function.domain, step, attenuation, background,

@@ -18,6 +18,7 @@ from correrender_tpu.ops.pallas import raymarch_kernel as rk
 from correrender_tpu.render import raymarch_exact as jexact
 from correrender_tpu.render.camera import Camera as JaxCamera
 from correrender_tpu.render.dvr import dvr_render as jax_dvr_render
+from correrender_tpu.render import pipeline as jax_pipeline
 from correrender_tpu.render.pipeline import (
     render_correlation as jax_render_correlation,
 )
@@ -442,6 +443,9 @@ def test_render_correlation_matches_jax():
     kw = dict(image_size=(48, 32), voxel_step=0.25)
     want = np.asarray(jax_render_correlation(jnp.asarray(stack), (8, 6, 4),
                                              jcam, jtf, **kw))
+    # Leave the JAX package's fused-program cache as this test found it:
+    # tests/test_recompile_guard.py counts its entries in the same worker.
+    jax_pipeline._fused.clear_cache()
     got = render_correlation(stack_from_numpy(stack), (8, 6, 4), tcam,
                              port_tf(jtf), **kw).numpy()
     # The Pearson fields agree to ~1e-7 (test_torch_port_pearson.py); the

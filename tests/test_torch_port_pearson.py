@@ -6,6 +6,8 @@ runs its plain version. The kernel itself is held to that plain version
 on the card by chip_smoke.py.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,6 @@ from correrender_tpu.ops.pallas import pearson_pallas
 from correrender_tpu.utils import fixtures as jfixtures
 
 from correrender_tpu_torch.calculators.correlation import correlate_field
-from correrender_tpu_torch.ops import pearson as tpearson
 from correrender_tpu_torch.ops.cuda import _build
 from correrender_tpu_torch.ops.cuda.pearson_kernel import (
     pearson_cuda,
@@ -32,6 +33,9 @@ from correrender_tpu_torch.ops.registry import (
     measure_from_id,
 )
 from correrender_tpu_torch.utils import fixtures as tfixtures
+
+# The module, not the function ``ops.pearson`` that the package exports.
+tpearson = importlib.import_module("correrender_tpu_torch.ops.pearson")
 
 ATOL = 2e-5  # tests/test_pallas.py:26
 
@@ -140,17 +144,27 @@ def test_correlate_pearson_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+# Began as a pin of the measures the first slices left out; they are
+# ported now, and each case holds its measure to the JAX package.
 @pytest.mark.parametrize("measure,step", [
     ("spearman", "A.8"), ("kendall", "A.8"), ("mi_binned", "A.9"),
     ("mi_kraskov", "A.9"), ("binned_mi_correlation_coefficient", "A.9"),
     ("kmi_correlation_coefficient", "A.9"),
 ])
 def test_unported_measures_name_their_roadmap_step(measure, step):
-    x = torch.zeros(10)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {step}"):
-        correlate(x, x[None], measure)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {step}"):
-        correlate_field(torch.zeros((1, 1, 2, 10)), x, measure)
+    stack = _synth_box_stack()
+    ref = stack[0, 1, 6].copy()
+    # KSG's MI agrees to 1e-6 here; sqrt(1 − exp(−2·MI)) multiplies that
+    # by its slope, about 1/sqrt(2·MI) = 5 at MI = 0.02.
+    atol = 5e-5 if measure == "kmi_correlation_coefficient" else 1e-5
+    got = correlate(torch.from_numpy(ref), torch.from_numpy(stack), measure)
+    want = jops.correlate(jnp.asarray(ref), jnp.asarray(stack), measure)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
+    got = correlate_field(torch.from_numpy(stack), torch.from_numpy(ref),
+                          measure)
+    want = jax_correlate_field(jnp.asarray(stack), jnp.asarray(ref), measure)
+    assert got.shape == stack.shape[:-1]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
 
 
 def test_measure_ids_match_jax():
@@ -199,8 +213,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_source_hash_covers_every_kernel_source():
     names = sorted(p.name for p in _build._sources())
-    assert names == ["classify.cu", "pearson.cu", "raymarch.cu",
-                     "shearwarp.cu"]
+    assert names == ["classify.cu", "kendall.cu", "ksg.cu", "ksg_banded.cu",
+                     "pearson.cu", "raymarch.cu", "shearwarp.cu",
+                     "spearman.cu"]
     assert _build._source_hash() == _build._source_hash()
 
 

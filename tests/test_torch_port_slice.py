@@ -239,10 +239,30 @@ def test_classified_volume_is_stubbed(config1):
 
 
 def test_other_measures_are_stubbed_on_the_main_path(config1):
+    # Began as a pin of the stub; the rank measures are ported now and the
+    # frame is held to the JAX package's.
+    stack, (jcam, jtf), (tcam, ttf) = config1
+    want = np.asarray(jax_render_fast(jnp.asarray(stack), (12, 10, 6), jcam,
+                                      jtf, "spearman", image_size=IMAGE))
+    got = render_correlation_fast(stack_from_numpy(stack), (12, 10, 6), tcam,
+                                  ttf, "spearman", image_size=IMAGE).numpy()
+    assert np.abs(got - want).max() <= MAX_ABS
+    assert jmetrics.ssim(got, want) >= MIN_SSIM
+    assert got[..., :3].max() > 0.2
+
+
+def test_measure_kwargs_reach_the_field(config1):
     stack, _, (tcam, ttf) = config1
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        render_correlation_fast(stack_from_numpy(stack), (1, 1, 1), tcam,
-                                ttf, "spearman", image_size=IMAGE)
+    stages = {}
+    render_correlation_fast(stack_from_numpy(stack), (12, 10, 6), tcam, ttf,
+                            "mi_kraskov", image_size=IMAGE, k=4,
+                            kraskov_estimator=2, on_stage=stages.__setitem__)
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+
+    stack_t = stack_from_numpy(stack)
+    want = correlate_field(stack_t, reference_series(stack_t, (12, 10, 6)),
+                           "mi_kraskov", k=4, kraskov_estimator=2)
+    assert torch.equal(stages["field"], want)
 
 
 def test_config1_needs_a_cuda_device():
