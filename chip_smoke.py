@@ -66,6 +66,33 @@ Phases, each asserting; any failure exits non-zero:
    reaches it: B10 repairs in place); the field times, each kernel
    against its plain version on a 4096-voxel subset with both times and
    the bound, B10's repaired share, binned MI's torch time.
+13. B6 (the iso marcher) against its plain version at 64³ and 512×288:
+   cameras along each axis, with and without flip, a model matrix, a
+   NaN voxel, ``refine_steps`` 8 and 0; found masks equal, bars on t and
+   on the gradients. B1 (chunk moments) against its plain version:
+   float32 and bfloat16, E = 50 and 13, V = 250³ and an odd V, the
+   accumulating form against the separate one; ``pearson_streamed`` of a
+   64³ × 1000 stack in 50-member chunks against K1's field.
+14. The iso frame (run after phase 8, on the headline stack): the K1
+   field → ``iso_render_exact(..., 0.5)`` at 1920×1080, voxel step 0.25
+   (q = 4), config 1's camera: counted launches (B6 once), B6 against
+   its plain version on the same prepared inputs (with the samples the
+   rays took, for the bound), the frame from the plain outputs against
+   the frame, the median of 5 frames' stage times (``on_stage``: layout,
+   march, shade), the ray fields' own time, a ``torch.profiler`` split
+   and busy share, and the same frame with the "marmitt" solver (B6
+   without refinement, then the torch tail).
+15. ``iso_render`` (plain torch) on config 1's field at 1280×720: card
+   against the same marcher on the CPU (one thread, every 24th row of
+   the same rays), and its time.
+16. The streamed headline as the JAX repo's bench.py shapes it: two
+   resident 50-member chunks of 250³ voxels, used alternately for 20
+   chunks against a 1000-member reference, in float32 and in bfloat16:
+   ``pearson_streamed`` with counted launches (20 per field), the field
+   against a float64 Pearson of every 997th voxel, the median of 5 field
+   times, Gvoxels/s, effective GB/s and the bound; B1 per chunk against
+   its plain version's time and the three-call torch formulation
+   (``sum``, ``sum`` of squares, ``ref @ chunk``).
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -109,6 +136,19 @@ ATOL_KSG = 1e-5
 ATOL_FIELD = {"spearman": ATOL_SPEARMAN, "kendall": 1e-6,
               "mi_binned": 1e-5, "mi_kraskov": ATOL_KSG}
 
+# B6 against its plain version: the same samples and the same rounding
+# (every position and sample value that decides a crossing is rounded
+# alike), so found masks are equal; the bars are the tests' against the
+# TPU kernel. A gradient that touches a NaN voxel carries the 1e30
+# sentinel and is compared relative to its size.
+ATOL_ISO_T, ATOL_ISO_GRAD, ISO_SENTINEL = 1e-5, 1e-4, 1e20
+ATOL_ISO_FRAME = 1e-3  # image where both hit (tests/test_torch_port_iso.py)
+# B1 against its plain version: tests/test_pallas.py:442-451 (Σy, Σy²
+# 2e-6, Σxy 2e-5, relative and absolute); both sum member after member
+# with separate roundings, so they agree to the bit.
+TOL_MOMENTS = (2e-6, 2e-6, 2e-5)
+ATOL_STREAMED = 1e-5  # pearson_streamed against K1 and a float64 Pearson
+
 # Published peaks of one H100 SXM at its full 700 W: HBM bytes/s and
 # float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -134,6 +174,10 @@ KERNELS = {
                "correrender_tpu/ops/pallas/ksg_kernel.py:183"),
     "mi_ksg_banded": ("correrender_tpu_torch/ops/cuda/csrc/ksg_banded.cu",
                       "correrender_tpu/ops/pallas/ksg_banded.py:543"),
+    "chunk_moments": ("correrender_tpu_torch/ops/cuda/csrc/moments.cu",
+                      "correrender_tpu/ops/pallas/moments_kernel.py:69"),
+    "raymarch_iso": ("correrender_tpu_torch/ops/cuda/csrc/raymarch.cu",
+                     "correrender_tpu/ops/pallas/raymarch_kernel.py:1267"),
 }
 
 # The kernels of the shear-warp frame (phases 4-5).
@@ -149,6 +193,9 @@ CONFIG_CHECK_STEP = 16  # configs 2-3: every 16th voxel against the CPU
 MI_GRID, MI_MEMBERS = 48, 1000  # the JAX bench's KSG size (bench.py:46-47)
 MI_SUBSET = 4096  # voxels for the plain versions at 48^3 x 1000
 GRID_CHECK_STEP = 997  # the 250^3 x 100 fields: every 997th voxel
+ISO_VALUE, ISO_VOXEL_STEP = 0.5, 0.25  # the iso frame: q = 4
+STREAM_SIDE, STREAM_MEMBERS, STREAM_CHUNK = 250, 1000, 50  # bench.py:43-45
+STREAM_CHECK_SIDE = 64  # pearson_streamed against K1 at 64^3 x 1000
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -211,8 +258,9 @@ def phase_build() -> None:
     print(f"[build] {path.name} in {time.perf_counter() - t0:.3f} s")
     entries = ("pearson_kernel", "classify_cf_kernel",
                "classify_volume_kernel", "composite_kernel",
-               "raymarch_dvr_kernel", "spearman_kernel", "kendall_kernel",
-               "ksg_kernel", "ksg_banded_kernel")
+               "raymarch_dvr_kernel", "raymarch_iso_kernel",
+               "spearman_kernel", "kendall_kernel", "ksg_kernel",
+               "ksg_banded_kernel", "moments_kernel")
     entry = "?"
     for line in log.splitlines():
         if "entry function" in line:  # ptxas names the kernel first
@@ -1171,6 +1219,372 @@ def phase_members(dev, card: str, errs: dict, stats: dict) -> None:
           f"{ms:.3f} ms (median of 5)")
 
 
+def iso_errors(got, want) -> tuple[float, float]:
+    """B6 outputs against their plain version: found masks must be equal;
+    returns (max |Δt|, max gradient or bracket error) over found rays.
+    Values that carry the NaN sentinel must sit in the same places and
+    are compared relative to their size."""
+    found = want[0]
+    assert torch.equal(got[0], found), "found masks differ"
+    if not bool(found.any()):
+        return 0.0, 0.0
+    err_t = max_abs(got[1][found], want[1][found])
+    err_g = 0.0
+    for ch in (2, 3, 4):
+        a, b = got[ch][found], want[ch][found]
+        big = b.abs() >= ISO_SENTINEL
+        assert torch.equal(a.abs() >= ISO_SENTINEL, big), "sentinel rays differ"
+        if bool(big.any()):
+            rel = float(((a[big] - b[big]).abs() / b[big].abs()).max())
+            assert rel <= 1e-6, ("sentinel gradient", rel)
+        if not bool(big.all()):
+            err_g = max(err_g, max_abs(a[~big], b[~big]))
+    return err_t, err_g
+
+
+def phase_kernels_iso(dev, errs: dict) -> None:
+    """B6 against its plain version on the card."""
+    from correrender_tpu_torch.ops.cuda.raymarch_kernel import (
+        iso_raymarch, iso_raymarch_plain, plan_raymarch,
+        prepare_raymarch_volume)
+    from correrender_tpu_torch.render.camera import Camera
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = EXACT_KERNEL_SIDE
+    vol = smooth_volume((n, n, n), gen, dev)
+    vol[n // 2, n // 2 - 2, n // 2 + 2] = float("nan")
+    size, iso = EXACT_KERNEL_IMAGE, 0.05
+    near = Camera(position=(0.05, 0.08, 0.9))
+    cases = {
+        "-z": near,
+        "+z": Camera(position=(0.05, 0.08, -0.9)),
+        "-x": Camera(position=(0.9, 0.08, 0.05)),
+        "+x": Camera(position=(-0.9, 0.08, 0.05)),
+        "-y": Camera(position=(0.05, 0.9, 0.08), up=(0.0, 0.0, 1.0)),
+        "+y": Camera(position=(0.05, -0.9, 0.08), up=(0.0, 0.0, 1.0)),
+    }
+    runs = [(name, cam, None) for name, cam in cases.items()]
+    runs.append(("model matrix", near, rotation_y(30.0)))
+    for name, cam, model in runs:
+        plan = plan_raymarch(cam, vol.shape, size, q=4, model_matrix=model)
+        prep = prepare_raymarch_volume(vol, plan["axis_world"], plan["flip"],
+                                       plan["lane_axis"])
+        for refine in (8, 0):
+            got = iso_raymarch(prep, cam, iso, size, plan,
+                               refine_steps=refine)
+            torch.cuda.synchronize()
+            want = iso_raymarch_plain(prep, cam, iso, size, plan,
+                                      refine_steps=refine)
+            err_t, err_g = iso_errors(got, want)
+            hit = float(want[0].float().mean())
+            print(f"[B6 raymarch_iso] {name}, refine {refine}: found equal "
+                  f"({100 * hit:.1f}% of rays), max|dt| {err_t:.3e} (bar "
+                  f"{ATOL_ISO_T}), max|dg| {err_g:.3e} (bar {ATOL_ISO_GRAD})")
+            assert 0.05 < hit < 0.95, name  # a surface, and rays past it
+            assert err_t <= ATOL_ISO_T and err_g <= ATOL_ISO_GRAD, name
+            errs["raymarch_iso"] = max(errs["raymarch_iso"], err_t, err_g)
+
+
+def moments_errors(got, want) -> float:
+    """Max |Δ| of B1's (3, V) sums, asserted within TOL_MOMENTS (relative
+    and absolute, per row)."""
+    worst = 0.0
+    for row, tol in enumerate(TOL_MOMENTS):
+        diff = (got[row] - want[row]).abs()
+        assert bool((diff <= tol + tol * want[row].abs()).all()), row
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def phase_kernels_moments(dev, errs: dict) -> None:
+    """B1 against its plain version, and pearson_streamed against K1."""
+    from correrender_tpu_torch.calculators.correlation import (
+        correlate_field, pearson_streamed)
+    from correrender_tpu_torch.ops.cuda.moments_kernel import (
+        chunk_moments_flat, chunk_moments_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for v in (STREAM_SIDE**3, 99_991):
+        for e in (STREAM_CHUNK, 13):
+            flat = torch.randn((e, v), generator=gen, device=dev)
+            ref = torch.randn(e, generator=gen, device=dev)
+            acc = torch.randn((3, v), generator=gen, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                c = flat.to(dtype)
+                got = chunk_moments_flat(c, ref)
+                torch.cuda.synchronize()
+                err = moments_errors(got, chunk_moments_plain(c, ref))
+                summed = chunk_moments_flat(c, ref, acc=acc.clone())
+                assert torch.equal(summed, acc + got), (v, e, dtype)
+                print(f"[B1 chunk_moments] E={e} V={v} {dtype}: "
+                      f"max|kernel-plain| {err:.3e} (bars {TOL_MOMENTS}); "
+                      f"accumulating form == separate form")
+                errs["chunk_moments"] = max(errs["chunk_moments"], err)
+                del c, got, summed
+            del flat, acc
+    side = STREAM_CHECK_SIDE
+    stack = torch.randn((side, side, side, STREAM_MEMBERS), generator=gen,
+                        device=dev)
+    ref = stack[side // 3, side // 2, side // 4].clone()
+    members = stack.permute(3, 0, 1, 2).contiguous()  # member-major
+    got = pearson_streamed(
+        [members[c:c + STREAM_CHUNK]
+         for c in range(0, STREAM_MEMBERS, STREAM_CHUNK)], ref)
+    err = max_abs(got, correlate_field(stack, ref))
+    print(f"[B1 pearson_streamed] {side}^3 x {STREAM_MEMBERS} in "
+          f"{STREAM_CHUNK}-member chunks: max|streamed - K1| {err:.3e} "
+          f"(bar {ATOL_STREAMED})")
+    assert err <= ATOL_STREAMED
+
+
+def phase_iso_frame(dev, card: str, errs: dict, stack: torch.Tensor):
+    """The headline's K1 field through iso_render_exact at 1080p (B6)."""
+    from correrender_tpu_torch.app.baseline_configs import config1_camera
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.ops.cuda.raymarch_kernel import (
+        _ray_fields, iso_raymarch, iso_raymarch_plain, plan_raymarch)
+    from correrender_tpu_torch.render.pipeline import reference_series
+    from correrender_tpu_torch.render.raymarch_exact import (
+        ExactPrepared, _q_from_voxel_step, iso_render_exact,
+        shade_from_march)
+
+    image_size, side = HEADLINE_IMAGE, stack.shape[0]
+    cam = config1_camera()
+    ref_point = (side // 4, side // 4, side // 2)
+    field = correlate_field(stack, reference_series(stack, ref_point))
+    kw = dict(image_size=image_size, voxel_step=ISO_VOXEL_STEP,
+              return_depth=True)
+
+    def frame(on_stage=None, mode="bisection"):
+        return iso_render_exact(field, cam, ISO_VALUE, intersection_mode=mode,
+                                on_stage=on_stage, **kw)
+
+    frame()  # warm-up outside the counted run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    img, depth = frame()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[iso] main-path launches: {launches}")
+    assert launches["raymarch_iso"] == 1, launches
+    assert img.shape == image_size[::-1] + (4,)
+    assert bool(torch.isfinite(img).all())
+    hit = torch.isfinite(depth)
+    print(f"[iso] {100 * float(hit.float().mean()):.2f}% of the rays hit "
+          f"r = {ISO_VALUE}")
+    assert 0.01 < float(hit.float().mean()) < 0.99
+
+    plan = plan_raymarch(cam, field.shape, image_size)
+    plan["q"] = _q_from_voxel_step(plan, ISO_VOXEL_STEP)
+    assert plan["q"] == 4, plan["q"]
+    prep = ExactPrepared(field).get(plan["axis_world"], plan["flip"],
+                                    plan["lane_axis"])
+    args = (prep, cam, ISO_VALUE, image_size, plan)
+    out = iso_raymarch(*args)
+    torch.cuda.synchronize()
+    plain_times, samples = [], []
+    for i in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = iso_raymarch_plain(*args, samples=samples if i == 0 else None)
+        end.record()
+        torch.cuda.synchronize()
+        plain_times.append(start.elapsed_time(end))
+        if i == 0:
+            out_p = res
+        del res
+    err_t, err_g = iso_errors(out, out_p)
+    img_p, depth_p = shade_from_march(out_p, field, cam, ISO_VALUE, plan,
+                                      image_size, return_depth=True)
+    both = torch.isfinite(depth) & torch.isfinite(depth_p)
+    assert torch.equal(torch.isfinite(depth), torch.isfinite(depth_p))
+    err_img = max_abs(img[both], img_p[both])
+    print(f"[iso] B6 max|dt| {err_t:.3e} (bar {ATOL_ISO_T}), max|dg| "
+          f"{err_g:.3e} (bar {ATOL_ISO_GRAD}), found equal; frame from the "
+          f"plain outputs: max|image| {err_img:.3e} where both hit (bar "
+          f"{ATOL_ISO_FRAME})")
+    assert err_t <= ATOL_ISO_T and err_g <= ATOL_ISO_GRAD
+    assert err_img <= ATOL_ISO_FRAME
+    errs["raymarch_iso"] = max(errs["raymarch_iso"], err_t, err_g)
+    del out_p, img_p, depth_p
+
+    runs = []
+    for _ in range(5):
+        clock = StageClock()
+        frame(clock)
+        runs.append(clock.times())
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    kernel_ms = median_ms(lambda: iso_raymarch(*args))
+    rays_ms = median_ms(lambda: _ray_fields(cam, image_size, plan, dev))
+    plain_ms = statistics.median(plain_times)
+    marmitt_ms = median_ms(lambda: frame(mode="marmitt"))
+    print(f"[iso {card}] {side}^3 field, {image_size[0]}x{image_size[1]}, "
+          f"q 4: frame {med['frame']:.3f} ms (median of 5: layout "
+          f"{med['layout']:.3f}, march {med['march']:.3f} (ray fields + B6),"
+          f" shade {med['shade']:.3f})")
+    print(f"[iso {card}] B6 iso_raymarch {kernel_ms:.3f} ms (median of 5, "
+          f"ray fields included; the ray fields alone {rays_ms:.3f} ms), "
+          f"plain {plain_ms:.3f} ms (median of 3); marmitt frame (B6 without"
+          f" refinement + torch tail) {marmitt_ms:.3f} ms (median of 5)")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[iso {card}] peak max_memory_allocated {peak / 2**30:.2f} GiB")
+    # B6's bound: the prepared volume and the ray fields read once, the
+    # five outputs written; per trilinear sample the rays took (the march
+    # up to each hit, 8 + 6 refinement samples per hit, counted by the
+    # plain version) about 40 flops: 4 z-lerps and 3 bilinear lerps (3
+    # each), the clamps, floors and fractions, γ, t and the plane
+    # coordinates, the sign test.
+    pixels = image_size[0] * image_size[1]
+    print(f"[iso] samples taken: {samples[0]} ({samples[0] / pixels:.1f} per "
+          f"ray)")
+    b6_bound = bound(prep.numel() * 4 + 2 * 5 * 4 * pixels, 40 * samples[0])
+    return {"raymarch_iso": (launches["raymarch_iso"], kernel_ms,
+                             plain_ms) + b6_bound}, frame
+
+
+def phase_iso_render(dev, card: str) -> None:
+    """iso_render (plain torch) on config 1's field at 1280x720, against
+    the same marcher on the CPU."""
+    from correrender_tpu_torch.app.baseline_configs import config1_camera
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+    from correrender_tpu_torch.render.camera import default_render_box
+    from correrender_tpu_torch.render.dvr import num_steps_for, world_step_size
+    from correrender_tpu_torch.render.iso import iso_composite, iso_render
+    from correrender_tpu_torch.render.pipeline import reference_series
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+
+    (xs, ys, zs), members, rows = CONFIG1_GRID, 100, 24
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stack = synth_box_stack(xs, ys, zs, members, gen, dev)
+    # The reference point at the centre of the first planted box, so that
+    # the field has a surface at r = 0.5.
+    field = correlate_field(stack, reference_series(
+        stack, (zs // 2, zs // 2, zs // 2)))
+    cam, image_size = config1_camera(), CONFIG1_IMAGE
+    img, depth = iso_render(field, cam, ISO_VALUE, image_size=image_size,
+                            return_depth=True)
+    torch.cuda.synchronize()
+    assert img.shape == image_size[::-1] + (4,)
+    assert bool(torch.isfinite(img).all())
+    frame_ms = median_ms(lambda: iso_render(field, cam, ISO_VALUE,
+                                            image_size=image_size), reps=3)
+    box = default_render_box((zs, ys, xs))
+    step = world_step_size((zs, ys, xs), box[0], box[1], 0.25)
+    origin, dirs = cam.rays(*image_size, device=dev)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # see ROADMAP C
+    t0 = time.perf_counter()
+    img_c, depth_c = iso_composite(
+        field.cpu(), origin.cpu(), dirs[::rows].cpu(), box[0], box[1],
+        ISO_VALUE, (0.9, 0.4, 0.2, 1.0), step, (0.0, 0.0, 0.0, 1.0),
+        num_steps_for(box[0], box[1], step), return_depth=True)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    hit, hit_c = torch.isfinite(depth[::rows].cpu()), torch.isfinite(depth_c)
+    agree = float((hit == hit_c).float().mean())
+    both = hit & hit_c
+    err = max_abs(img[::rows].cpu()[both], img_c[both])
+    err_d = max_abs(depth[::rows].cpu()[both], depth_c[both])
+    print(f"[iso_render] {xs}x{ys}x{zs}x{members}, {image_size[0]}x"
+          f"{image_size[1]}: hit masks agree on {100 * agree:.3f}% of every "
+          f"{rows}th row, {100 * float(both.float().mean()):.2f}% hit; "
+          f"max|card-CPU| image {err:.3e}, depth {err_d:.3e} where both hit "
+          f"(bars 1e-4, 1e-5; CPU 1 thread {cpu_s:.1f} s)")
+    assert agree >= 0.999 and float(both.float().mean()) > 0.01
+    assert err <= 1e-4 and err_d <= 1e-5
+    print(f"[iso_render {card}] {frame_ms:.3f} ms (median of 3; plain torch,"
+          f" no kernel)")
+
+
+def phase_streamed(dev, card: str, errs: dict, stats: dict) -> None:
+    """The 250^3 x 1000 Pearson field streamed as bench.py streams it."""
+    from correrender_tpu_torch.calculators.correlation import pearson_streamed
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.ops.cuda.moments_kernel import (
+        chunk_moments_flat, chunk_moments_plain)
+    from correrender_tpu_torch.ops.pearson import pearson
+
+    side, n, e = STREAM_SIDE, STREAM_MEMBERS, STREAM_CHUNK
+    nvox = side**3
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ref = torch.randn(n, generator=gen, device=dev)
+    bufs = [torch.randn((e, side, side, side), generator=gen, device=dev)
+            for _ in range(2)]
+    idx = torch.arange(0, nvox, GRID_CHECK_STEP, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = (x.to(dtype) for x in bufs)
+        chunks = [a if c % 2 == 0 else b for c in range(n // e)]
+        pearson_streamed(chunks, ref)  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        field = pearson_streamed(chunks, ref)
+        torch.cuda.synchronize()
+        launches = _build.LAUNCHES["chunk_moments"]
+        assert launches == n // e, launches
+        assert field.shape == (side, side, side)
+        assert bool(torch.isfinite(field).all())
+        # Every 997th voxel against a float64 Pearson of its 1000 members.
+        series = torch.cat([ch.reshape(e, -1)[:, idx] for ch in chunks]).T
+        want = pearson(ref.double(), series.double(), dtype=torch.float64)
+        err = max_abs(field.reshape(-1)[idx], want)
+        assert err <= ATOL_STREAMED, (dtype, err)
+        del series, want
+        ms = median_ms(lambda: pearson_streamed(chunks, ref))
+        gbytes = nvox * n * a.element_size() / 1e9
+        bound_ms = gbytes * 1e9 / HBM_BYTES_PER_S * 1e3
+        # bench.py's XLA A/B row: three torch calls per chunk.
+        acc = torch.zeros((3, nvox), device=dev)
+
+        def three_calls():
+            for ch, c0 in zip(chunks, range(0, n, e)):
+                c = ch.reshape(e, -1).float()
+                acc[0] += c.sum(0)
+                acc[1] += (c * c).sum(0)
+                acc[2] += ref[c0:c0 + e] @ c
+
+        lib_field_ms = median_ms(three_calls)
+        print(f"[streamed {card}] {side}^3 x {n} {dtype}, {n // e} chunks of "
+              f"{e}: field {ms:.3f} ms (median of 5), {nvox / ms / 1e6:.3f} "
+              f"Gvoxels/s, {gbytes / ms * 1e3:.1f} GB/s effective; launches "
+              f"{launches}; max|field - f64| {err:.3e} over every "
+              f"{GRID_CHECK_STEP}th voxel (bar {ATOL_STREAMED})")
+        print(f"[streamed {card}] {dtype} bound: one read of the stack, "
+              f"{nvox} x {n} x {a.element_size()} B = {gbytes:.2f} GB at "
+              f"3.35 TB/s = {bound_ms:.3f} ms ({100 * bound_ms / ms:.1f}% of "
+              f"it reached); three torch calls per chunk (sum, sum of "
+              f"squares, ref @ chunk; bench.py's XLA row) {lib_field_ms:.3f} "
+              f"ms per field")
+        stats[f"streamed {dtype}"] = ms
+        if dtype == torch.float32:
+            # The kernels line: one accumulating launch on one chunk.
+            flat = a.reshape(e, -1)
+            ref_c = ref[:e]
+            acc.zero_()
+            kernel_ms = median_ms(lambda: chunk_moments_flat(flat, ref_c,
+                                                             acc=acc))
+            plain_ms = median_ms(lambda: chunk_moments_plain(flat, ref_c,
+                                                             acc=acc))
+
+            def lib_chunk():  # one chunk of the three-call formulation
+                return flat.sum(0), (flat * flat).sum(0), ref_c @ flat
+
+            lib_ms = median_ms(lib_chunk)
+            # The chunk and the running sums read, the sums written.
+            b1_bound = bound(4 * e * nvox + 4 * e + 2 * 12 * nvox,
+                             5 * e * nvox)
+            print(f"[streamed {card}] B1 per chunk ({e} x {side}^3 f32, "
+                  f"accumulating): kernel {kernel_ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, three torch calls {lib_ms:.3f} ms, "
+                  f"bound {b1_bound[0]:.3f} ms ({b1_bound[1]})")
+            stats["chunk_moments"] = (launches, kernel_ms, plain_ms) + (
+                b1_bound) + (lib_ms,)
+        del a, b, chunks, field, acc
+    del bufs
+
+
 def main() -> None:
     from correrender_tpu_torch.utils.fixtures import synth_box_stack
 
@@ -1183,6 +1597,8 @@ def main() -> None:
     phase_kernels(dev, errs)
     phase_kernels_exact(dev, errs)
     phase_kernels_measures(dev, errs)
+    phase_kernels_iso(dev, errs)
+    phase_kernels_moments(dev, errs)
     phase_config1(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     side = HEADLINE_SIDE
@@ -1201,24 +1617,33 @@ def main() -> None:
         "K1 pearson_kernel": "pearson_kernel"},
         ("B5 raymarch_dvr_kernel", "K1 pearson_kernel"))
     stats.update(phase_restricted(dev, card, errs, stack))
-    del frame, exact_frame
+    iso_stats, iso_frame = phase_iso_frame(dev, card, errs, stack)
+    stats.update(iso_stats)
+    phase_profile(f"profile iso {card}", iso_frame, {
+        "B6 raymarch_iso_kernel": "raymarch_iso_kernel",
+        "K1 pearson_kernel": "pearson_kernel"},
+        ("B6 raymarch_iso_kernel",))
+    del frame, exact_frame, iso_frame
     phase_measures_grid(dev, card, errs, stack, stats)
     del stack
     phase_eye_inside(dev, card)
     phase_configs23(dev, card, errs)
     phase_members(dev, card, errs, stats)
+    phase_iso_render(dev, card)
+    phase_streamed(dev, card, errs, stats)
     print(f"[done {card}] chip_smoke.py phases took "
           f"{time.perf_counter() - t_start:.1f} s")
     # No single PyTorch call computes any of these functions (a field of
     # one correlation measure against one series, a LUT classification
     # into a slice layout, a shear-warp composite, a plane-order march),
-    # so library_ms is null throughout.
+    # so library_ms is null, except for B1: its moments are three torch
+    # calls (sum, sum of squares, ref @ chunk), timed together.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": stats[k][0],
          "max_abs_err": errs[k], "ms": stats[k][1], "plain_ms": stats[k][2],
          "bound_ms": stats[k][3], "bound_by": stats[k][4],
-         "library_ms": None}
+         "library_ms": stats[k][5] if len(stats[k]) > 5 else None}
         for k in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -20,9 +20,11 @@ import torch
 
 from correrender_tpu_torch.ops.cuda.kendall_kernel import kendall_cuda
 from correrender_tpu_torch.ops.cuda.ksg_banded import mi_ksg_banded
+from correrender_tpu_torch.ops.cuda.moments_kernel import chunk_moments_flat
 from correrender_tpu_torch.ops.cuda.pearson_kernel import pearson_cuda
 from correrender_tpu_torch.ops.cuda.spearman_kernel import spearman_cuda
 from correrender_tpu_torch.ops.mi_ksg import kmi_correlation_coefficient
+from correrender_tpu_torch.ops.pearson import pearson_from_moments
 from correrender_tpu_torch.ops.registry import (
     CorrelationMeasure,
     correlate,
@@ -135,3 +137,40 @@ def _correlate_field_flat(series: torch.Tensor, ref: torch.Tensor,
                 max(series.shape[0], 1))
     return _correlate_chunked(series, ref, m, chunk, num_bins=num_bins,
                               mi_bounds=mi_bounds)
+
+
+def pearson_streamed(chunks, ref: torch.Tensor) -> torch.Tensor:
+    """Pearson field of a member stack streamed in member chunks.
+
+    The JAX repo's ``bench.py`` streaming loop (``accumulate_onepass``
+    over the chunks, then ``assemble``), moved into the library so that
+    ``chip_smoke.py`` and a later bench share one implementation: B1 adds
+    each chunk's ``(Σy, Σy², Σxy)`` to float32 running sums, and the field
+    is assembled once at the end. Nothing waits on the device in between,
+    so the chunks' launches queue back to back. A stack too large for the
+    card (250³ × 1000 float32 is 62.5 GB) streams through a few resident
+    chunk buffers.
+
+    Args:
+      chunks: iterable of member-major ``(E_c, Z, Y, X)`` float32 or
+        bfloat16 chunks, in member order, on one device.
+      ref: ``(n,)`` float32 reference series, ``n = Σ E_c``.
+
+    Returns:
+      ``(Z, Y, X)`` float32 Pearson field.
+    """
+    acc, spatial, seen = None, None, 0
+    for chunk in chunks:
+        e = chunk.shape[0]
+        if acc is None:
+            spatial = chunk.shape[1:]
+            acc = torch.zeros((3, chunk[0].numel()), dtype=torch.float32,
+                              device=chunk.device)
+        elif chunk.shape[1:] != spatial:
+            raise ValueError(f"chunk {tuple(chunk.shape)} does not match "
+                             f"the grid {tuple(spatial)}")
+        chunk_moments_flat(chunk.reshape(e, -1), ref[seen:seen + e], acc=acc)
+        seen += e
+    if acc is None or seen != ref.shape[0]:
+        raise ValueError(f"the chunks hold {seen} members, ref {ref.shape[0]}")
+    return pearson_from_moments(acc[0], acc[1], acc[2], ref).reshape(spatial)

@@ -32,7 +32,8 @@ _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 LAUNCHES = {"pearson": 0, "classify_to_cf": 0, "shearwarp_composite": 0,
             "raymarch_dvr": 0, "classify_volume": 0, "spearman": 0,
-            "kendall": 0, "mi_ksg": 0, "mi_ksg_banded": 0}
+            "kendall": 0, "mi_ksg": 0, "mi_ksg_banded": 0,
+            "chunk_moments": 0, "raymarch_iso": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +61,13 @@ _SIGNATURES = {
     "correrender_raymarch_dvr": [
         _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P,
     ],
+    # vol, planes, sub_extent, lane_extent, fields, width, height,
+    # params (host), q, refine_steps, out
+    "correrender_raymarch_iso": [
+        _P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P,
+    ],
+    # chunk, bf16, ref, acc, out, v, e
+    "correrender_chunk_moments": [_P, _I, _P, _P, _P, _L, _I, _I, _P],
     # series, xrank2, sums, v, n
     "correrender_spearman": [_P, _P, _P, _L, _I, _I, _P],
     # series, ref, counts, v, n

@@ -1,9 +1,12 @@
-// B5: exact plane-order DVR, one thread per pixel ray.
+// B5 (exact plane-order DVR) and B6 (the isosurface's first hit), one
+// thread per pixel ray.
 //
-// Replaces correrender_tpu/ops/pallas/raymarch_kernel.py::dvr_raymarch
-// (kernel body _make_dvr_kernel). Per ray it computes what that kernel
+// B5 replaces correrender_tpu/ops/pallas/raymarch_kernel.py::
+// dvr_raymarch (kernel body _make_dvr_kernel), B6 replaces iso_raymarch
+// (_make_iso_kernel). Per ray each computes what its TPU kernel
 // computes, without the TPU's structure: no bricks, no lane rolls, no
-// tent-weight matrix product, no DMA ring. The volume arrives permuted
+// tent-weight matrix products, no DMA ring (the iso kernel's six-slot
+// plane ring only kept its refinement's planes resident). The volume arrives permuted
 // to (A, S, L) — planes along the principal axis, front to back — with
 // NaN replaced by a 1e30 sentinel (ops/cuda/raymarch_kernel.py::
 // prepare_raymarch_volume). Each ray marches its own slab window
@@ -20,19 +23,31 @@
 // The ray stops once its alpha reaches 0.999 (the reference shader's
 // per-ray rule; the TPU kernel stopped whole 8×128 subtiles).
 //
+// B6 marches the same samples and stops at the first sign change of
+// f = sample − iso between two active samples (a sample is active on
+// [t0, t1] and when it does not touch a NaN voxel; the previous active
+// sample carries across slabs). With refine_steps > 0 it bisects the
+// crossing in γ over [γ_hit − gs, γ_hit] with true trilinear samples
+// (z = clip((γ − g0p)/gk, 0, planes − 1), u and v clamped as in the
+// march) and takes central differences of ±1 voxel along (principal,
+// sub, lane) at the refined point; it writes (found, t_surf, gA, gS, gL).
+// With refine_steps == 0 it writes the bracket (found, t_hit, f_lo,
+// f_hi, 0) for the torch solvers.
+//
 // Precision: plain f32 arithmetic, no tensor cores and no texture
 // filtering (its 8-bit fractional weights would miss the bars). The
 // positions that decide whether a sample counts (γ, t, raw_u, raw_v and
-// the ball distances) use __fadd_rn / __fmul_rn, which the compiler
+// the ball distances) and the sample value itself (which side of the
+// iso value it lies on) use __fadd_rn / __fmul_rn, which the compiler
 // never contracts into FMAs, so every such test rounds as in the plain
-// PyTorch version: a flipped test at the box entry would change a pixel
-// by a whole sample's alpha.
+// PyTorch version: a flipped test at the box entry would change a DVR
+// pixel by a whole sample's alpha, and an iso hit by a whole sub-step.
 //
 // Bound on the H100: the eight trilinear loads per sample, served by L1
 // and L2 (a warp is a 32×1 row of pixels whose rays sample neighbouring
-// voxels), and the hinge sum (K ≤ 24 knots × 4 channels). The transfer
-// function and all scalars travel in the kernel's parameter block
-// (constant bank), read uniformly by every thread.
+// voxels), and for B5 the hinge sum (K ≤ 24 knots × 4 channels). The
+// transfer function and all scalars travel in the kernel's parameter
+// block (constant bank), read uniformly by every thread.
 
 #include <cuda_runtime.h>
 
@@ -51,6 +66,52 @@ struct RayParams {
   float slope[4][kMaxKnots];
   int k, q, nan_mode, restriction, planes, sub, lane, width, height;
 };
+
+// Slab window of a ray: slab k holds γ ∈ [g0 + (k − 1)·gk, g0 + k·gk);
+// [klo, khi] covers every γ in [t0·da, t1·da] with a slab to spare, so
+// skipping the slabs outside it changes nothing.
+__device__ __forceinline__ void slab_window(float t0, float t1, float inv_da,
+                                            float g0, float gk, int planes,
+                                            int* klo, int* khi) {
+  const float da = 1.f / inv_da;
+  const float planes_f = static_cast<float>(planes);
+  const float lo_f = fminf(fmaxf(floorf((t0 * da - g0) / gk), -1.f),
+                           planes_f + 1.f);
+  const float hi_f = fminf(fmaxf(ceilf((t1 * da - g0) / gk) + 1.f, -1.f),
+                           planes_f);
+  *klo = max(static_cast<int>(lo_f), 0);
+  *khi = static_cast<int>(hi_f);
+}
+
+// γ of sub-step s in the slab whose first sub-step is at gbase.
+__device__ __forceinline__ float gamma_at(float gbase, int s, float gs) {
+  return __fadd_rn(gbase, __fmul_rn(static_cast<float>(s), gs));
+}
+
+// The z-lerp by wz between planes plo and phi of the bilinear sample at
+// (clamp(raw_u), clamp(raw_v)), every product and sum rounded on its own
+// in the plain version's order.
+__device__ __forceinline__ float sample_slab(
+    const float* __restrict__ plo, const float* __restrict__ phi, float wz,
+    float raw_u, float raw_v, float u_max, float v_max, int sub, int lane) {
+  const float uc = fminf(fmaxf(raw_u, 0.f), u_max);
+  const float vc = fminf(fmaxf(raw_v, 0.f), v_max);
+  const int iu = min(static_cast<int>(uc), sub - 1);
+  const int iv = min(static_cast<int>(vc), lane - 1);
+  const float fu = uc - static_cast<float>(iu);
+  const float fv = vc - static_cast<float>(iv);
+  const long long r0 = static_cast<long long>(iu) * lane;
+  const long long r1 = static_cast<long long>(min(iu + 1, sub - 1)) * lane;
+  const int iv1 = min(iv + 1, lane - 1);
+  const float wl = 1.f - wz;
+  const auto tap = [&](long long i) {
+    return __fadd_rn(__fmul_rn(wl, __ldg(plo + i)), __fmul_rn(wz, __ldg(phi + i)));
+  };
+  const float gu = 1.f - fu, gv = 1.f - fv;
+  const float a = __fadd_rn(__fmul_rn(gv, tap(r0 + iv)), __fmul_rn(fv, tap(r0 + iv1)));
+  const float b = __fadd_rn(__fmul_rn(gv, tap(r1 + iv)), __fmul_rn(fv, tap(r1 + iv1)));
+  return __fadd_rn(__fmul_rn(gu, a), __fmul_rn(fu, b));
+}
 
 __global__ void __launch_bounds__(256) raymarch_dvr_kernel(
     const float* __restrict__ vol, const float* __restrict__ fields,
@@ -75,18 +136,9 @@ __global__ void __launch_bounds__(256) raymarch_dvr_kernel(
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_a = 0.f;
   if (t1 >= t0) {  // the ray meets the box in front of its depth limit
-    const float da = 1.f / inv_da;
     const float dt = dt_unit * fabsf(inv_da);
-    // Slab window: slab k holds γ ∈ [g0 + (k − 1)·gk, g0 + k·gk); the
-    // window covers every γ in [t0·da, t1·da] with a slab to spare, so
-    // skipping the slabs outside it changes nothing.
-    const float planes_f = static_cast<float>(P.planes);
-    const float lo_f = fminf(fmaxf(floorf((t0 * da - g0) / gk), -1.f),
-                             planes_f + 1.f);
-    const float hi_f = fminf(fmaxf(ceilf((t1 * da - g0) / gk) + 1.f, -1.f),
-                             planes_f);
-    const int klo = max(static_cast<int>(lo_f), 0);
-    const int khi = static_cast<int>(hi_f);
+    int klo, khi;
+    slab_window(t0, t1, inv_da, g0, gk, P.planes, &klo, &khi);
     const long long plane = static_cast<long long>(P.sub) * P.lane;
     bool done = false;
     for (int kk = klo; kk <= khi && !done; ++kk) {
@@ -94,8 +146,7 @@ __global__ void __launch_bounds__(256) raymarch_dvr_kernel(
       const float* __restrict__ phi = vol + min(kk, P.planes - 1) * plane;
       const float gbase = __fadd_rn(g0, __fmul_rn(static_cast<float>(kk - 1), gk));
       for (int s = 0; s < P.q; ++s) {
-        const float sf = static_cast<float>(s);
-        const float gamma = __fadd_rn(gbase, __fmul_rn(sf, gs));
+        const float gamma = gamma_at(gbase, s, gs);
         const float t = __fmul_rn(gamma, inv_da);
         if (!(t >= t0 && t <= t1)) continue;  // inactive: adds exactly 0
         const float raw_u = __fadd_rn(u0c, __fmul_rn(gamma, su));
@@ -115,23 +166,9 @@ __global__ void __launch_bounds__(256) raymarch_dvr_kernel(
           }
           if (!inside) continue;
         }
-        const float wz = (sf + 0.5f) * inv_q;
-        const float uc = fminf(fmaxf(raw_u, 0.f), u_max);
-        const float vc = fminf(fmaxf(raw_v, 0.f), v_max);
-        const int iu = min(static_cast<int>(uc), P.sub - 1);
-        const int iv = min(static_cast<int>(vc), P.lane - 1);
-        const float fu = uc - static_cast<float>(iu);
-        const float fv = vc - static_cast<float>(iv);
-        const long long r0 = static_cast<long long>(iu) * P.lane;
-        const long long r1 = static_cast<long long>(min(iu + 1, P.sub - 1)) * P.lane;
-        const int iv1 = min(iv + 1, P.lane - 1);
-        const float wl = 1.f - wz;
-        const float b00 = wl * __ldg(plo + r0 + iv) + wz * __ldg(phi + r0 + iv);
-        const float b01 = wl * __ldg(plo + r0 + iv1) + wz * __ldg(phi + r0 + iv1);
-        const float b10 = wl * __ldg(plo + r1 + iv) + wz * __ldg(phi + r1 + iv);
-        const float b11 = wl * __ldg(plo + r1 + iv1) + wz * __ldg(phi + r1 + iv1);
-        const float val = (1.f - fu) * ((1.f - fv) * b00 + fv * b01) +
-                          fu * ((1.f - fv) * b10 + fv * b11);
+        const float wz = (static_cast<float>(s) + 0.5f) * inv_q;
+        const float val = sample_slab(plo, phi, wz, raw_u, raw_v, u_max, v_max,
+                                      P.sub, P.lane);
 
         const float u = fminf(fmaxf((val - vmin) * inv_vspan, 0.f), 1.f);
         float c0 = P.base[0], c1 = P.base[1], c2 = P.base[2], c3 = P.base[3];
@@ -168,6 +205,116 @@ __global__ void __launch_bounds__(256) raymarch_dvr_kernel(
   rgb[3 * p + 1] = acc_g;
   rgb[3 * p + 2] = acc_b;
   alpha[p] = acc_a;
+}
+
+struct IsoParams {
+  // g0 gk gs u_max v_max u0c v0c iso g0p inv_ga inv_q
+  float p[11];
+  int q, refine_steps, planes, sub, lane, width, height;
+};
+
+// Trilinear sample at a per-ray γ plus voxel offsets (dz along the
+// principal axis, du, dv in the plane), clamped to the volume's centres.
+__device__ __forceinline__ float sample_ray(
+    const float* __restrict__ vol, const IsoParams& P, float gamma, float su,
+    float sv, float du, float dv, float dz) {
+  const float zc = fminf(
+      fmaxf(__fadd_rn(__fmul_rn(__fadd_rn(gamma, -P.p[8]), P.p[9]), dz), 0.f),
+      static_cast<float>(P.planes - 1));
+  const int iz = min(static_cast<int>(zc), P.planes - 1);
+  const float fz = zc - static_cast<float>(iz);
+  const long long plane = static_cast<long long>(P.sub) * P.lane;
+  const float raw_u = __fadd_rn(__fadd_rn(P.p[5], __fmul_rn(gamma, su)), du);
+  const float raw_v = __fadd_rn(__fadd_rn(P.p[6], __fmul_rn(gamma, sv)), dv);
+  return sample_slab(vol + iz * plane, vol + min(iz + 1, P.planes - 1) * plane,
+                     fz, raw_u, raw_v, P.p[3], P.p[4], P.sub, P.lane);
+}
+
+__global__ void __launch_bounds__(256) raymarch_iso_kernel(
+    const float* __restrict__ vol, const float* __restrict__ fields,
+    const __grid_constant__ IsoParams P, float* __restrict__ out) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= P.width || y >= P.height) return;
+  const float g0 = P.p[0], gk = P.p[1], gs = P.p[2];
+  const float u_max = P.p[3], v_max = P.p[4], u0c = P.p[5], v0c = P.p[6];
+  const float iso = P.p[7], inv_q = P.p[10];
+
+  const long long n = static_cast<long long>(P.width) * P.height;
+  const long long p = static_cast<long long>(y) * P.width + x;
+  const float su = fields[p];
+  const float sv = fields[n + p];
+  const float inv_da = fields[2 * n + p];
+  const float t0 = fields[3 * n + p];
+  const float t1 = fields[4 * n + p];
+
+  bool found = false;
+  float t_hit = 0.f, f_lo = 0.f, f_hi = 0.f;
+  if (t1 >= t0) {
+    int klo, khi;
+    slab_window(t0, t1, inv_da, g0, gk, P.planes, &klo, &khi);
+    const long long plane = static_cast<long long>(P.sub) * P.lane;
+    bool have_prev = false;
+    float prev = 0.f;
+    for (int kk = klo; kk <= khi && !found; ++kk) {
+      const float* __restrict__ plo = vol + max(kk - 1, 0) * plane;
+      const float* __restrict__ phi = vol + min(kk, P.planes - 1) * plane;
+      const float gbase = __fadd_rn(g0, __fmul_rn(static_cast<float>(kk - 1), gk));
+      for (int s = 0; s < P.q; ++s) {
+        const float gamma = gamma_at(gbase, s, gs);
+        const float t = __fmul_rn(gamma, inv_da);
+        if (!(t >= t0 && t <= t1)) continue;
+        const float wz = (static_cast<float>(s) + 0.5f) * inv_q;
+        const float val = sample_slab(
+            plo, phi, wz, __fadd_rn(u0c, __fmul_rn(gamma, su)),
+            __fadd_rn(v0c, __fmul_rn(gamma, sv)), u_max, v_max, P.sub, P.lane);
+        if (!(val < kNanThresh)) continue;  // touches a NaN voxel: inactive
+        const float f = __fadd_rn(val, -iso);
+        if (have_prev && ((f >= 0.f) != (prev >= 0.f))) {
+          found = true;
+          t_hit = t;
+          f_lo = prev;
+          f_hi = f;
+          break;
+        }
+        prev = f;
+        have_prev = true;
+      }
+    }
+  }
+  float o1 = t_hit, o2 = f_lo, o3 = f_hi, o4 = 0.f;
+  if (!found) {
+    o1 = o2 = o3 = 0.f;
+  } else if (P.refine_steps > 0) {
+    // Bisection in γ over [γ_hit − gs, γ_hit] (γ_hit = t_hit·da, as the
+    // TPU kernel recovers it), then ±1-voxel central differences.
+    float ghi = __fmul_rn(t_hit, __fdiv_rn(1.f, inv_da));
+    float glo = __fadd_rn(ghi, -gs);
+    float fl = f_lo;
+    for (int r = 0; r < P.refine_steps; ++r) {
+      const float gm = __fmul_rn(0.5f, __fadd_rn(glo, ghi));
+      const float fm = __fadd_rn(sample_ray(vol, P, gm, su, sv, 0.f, 0.f, 0.f), -iso);
+      if ((fm >= 0.f) == (fl >= 0.f)) {
+        glo = gm;
+        fl = fm;
+      } else {
+        ghi = gm;
+      }
+    }
+    const float g = __fmul_rn(0.5f, __fadd_rn(glo, ghi));
+    o1 = __fmul_rn(g, inv_da);
+    o2 = __fadd_rn(sample_ray(vol, P, g, su, sv, 0.f, 0.f, 1.f),
+                   -sample_ray(vol, P, g, su, sv, 0.f, 0.f, -1.f));
+    o3 = __fadd_rn(sample_ray(vol, P, g, su, sv, 1.f, 0.f, 0.f),
+                   -sample_ray(vol, P, g, su, sv, -1.f, 0.f, 0.f));
+    o4 = __fadd_rn(sample_ray(vol, P, g, su, sv, 0.f, 1.f, 0.f),
+                   -sample_ray(vol, P, g, su, sv, 0.f, -1.f, 0.f));
+  }
+  out[p] = found ? 1.f : 0.f;
+  out[n + p] = o1;
+  out[2 * n + p] = o2;
+  out[3 * n + p] = o3;
+  out[4 * n + p] = o4;
 }
 
 }  // namespace
@@ -207,5 +354,33 @@ extern "C" int correrender_raymarch_dvr(
   raymarch_dvr_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vol), static_cast<const float*>(fields), P,
       static_cast<float*>(rgb), static_cast<float*>(alpha));
+  return cudaGetLastError();
+}
+
+extern "C" int correrender_raymarch_iso(
+    const void* vol, int planes, int sub_extent, int lane_extent,
+    const void* fields, int width, int height, const void* params, int q,
+    int refine_steps, void* out, int device, void* stream) {
+  if (q < 1 || refine_steps < 0 || planes < 1 || sub_extent < 1 ||
+      lane_extent < 1) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  IsoParams P;
+  const float* hp = static_cast<const float*>(params);
+  for (int i = 0; i < 11; ++i) P.p[i] = hp[i];
+  P.q = q;
+  P.refine_steps = refine_steps;
+  P.planes = planes;
+  P.sub = sub_extent;
+  P.lane = lane_extent;
+  P.width = width;
+  P.height = height;
+  const dim3 block(32, 8);
+  const dim3 grid((width + 31) / 32, (height + 7) / 8);
+  raymarch_iso_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vol), static_cast<const float*>(fields), P,
+      static_cast<float*>(out));
   return cudaGetLastError();
 }

@@ -1,8 +1,8 @@
-"""B5 (exact plane-order DVR, ``csrc/raymarch.cu``) beside its plain
-PyTorch version, and the host-side plan that defines its samples.
+"""B5 (exact plane-order DVR) and B6 (the isosurface's first hit), both
+in ``csrc/raymarch.cu``, beside their plain PyTorch versions, and the
+host-side plan that defines their samples.
 
-Counterpart of ``correrender_tpu/ops/pallas/raymarch_kernel.py`` (DVR
-part). Rays from one camera share the sign of their direction along the
+Counterpart of ``correrender_tpu/ops/pallas/raymarch_kernel.py``. Rays from one camera share the sign of their direction along the
 volume's principal axis, so marching a *plane index* front to back
 visits every ray's samples in compositing order. For a ray the sample on
 slab k, sub-step s sits at march distance ``γ(k, s) = g0 + (k − 1)·gk +
@@ -27,6 +27,8 @@ Departures from the TPU kernel, by design:
   background.
 * A transfer function without control points raises
   :class:`RaymarchUnsupported` instead of marching a gray ramp.
+* B6 takes ``refine_steps`` but neither ``ns`` (subtiles per grid step)
+  nor ``interpret``: both belong to the TPU kernel.
 """
 
 from __future__ import annotations
@@ -315,21 +317,48 @@ def _march_params(plan, camera, tf, attenuation, restriction):
     return params, tfp, metric
 
 
+def _check_prepared(vol_prepared, plan):
+    if tuple(vol_prepared.shape) != (plan["planes"], plan["sub_extent"],
+                                     plan["lane_extent"]):
+        raise ValueError(f"prepared volume {tuple(vol_prepared.shape)} does "
+                         "not match the plan")
+
+
 def _inputs(vol_prepared, camera, tf, image_size, plan, attenuation,
             nan_mode, depth_limit, restriction):
     if nan_mode not in _NAN_MODES:
         raise ValueError(f"nan_mode {nan_mode!r}: the marcher takes "
                          f"{sorted(_NAN_MODES)}")
-    planes, sub, lane = vol_prepared.shape
-    if (planes, sub, lane) != (plan["planes"], plan["sub_extent"],
-                               plan["lane_extent"]):
-        raise ValueError(f"prepared volume {tuple(vol_prepared.shape)} does "
-                         "not match the plan")
+    _check_prepared(vol_prepared, plan)
     params, tfp, metric = _march_params(plan, camera, tf, attenuation,
                                         restriction)
     fields = _ray_fields(camera, image_size, plan, vol_prepared.device,
                          depth_limit)
     return fields, params, tfp, metric
+
+
+def _sample_slab(flat, lo_off, hi_off, wz, raw_u, raw_v, u_max, v_max,
+                 n_sub, n_lane):
+    """The plain versions' sample: the z-lerp by ``wz`` between the planes
+    at element offsets ``lo_off`` and ``hi_off`` of the flat ``(A·S·L,)``
+    volume, of the bilinear sample at ``(clamp(raw_u), clamp(raw_v))``.
+    Every product and sum is one float32 operation, as ``sample_slab`` in
+    ``csrc/raymarch.cu`` rounds it."""
+    uc = torch.clamp(raw_u, 0.0, float(u_max))
+    vc = torch.clamp(raw_v, 0.0, float(v_max))
+    iu = torch.clamp(uc.to(torch.long), max=n_sub - 1)
+    iv = torch.clamp(vc.to(torch.long), max=n_lane - 1)
+    fu = uc - iu
+    fv = vc - iv
+    iu1 = torch.clamp(iu + 1, max=n_sub - 1)
+    iv1 = torch.clamp(iv + 1, max=n_lane - 1)
+
+    def tap(i, j):
+        idx = i * n_lane + j
+        return (1.0 - wz) * flat[lo_off + idx] + wz * flat[hi_off + idx]
+
+    return ((1.0 - fu) * ((1.0 - fv) * tap(iu, iv) + fv * tap(iu, iv1))
+            + fu * ((1.0 - fv) * tap(iu1, iv) + fv * tap(iu1, iv1)))
 
 
 def dvr_raymarch_plain(vol_prepared, camera, tf, image_size, plan,
@@ -353,7 +382,8 @@ def dvr_raymarch_plain(vol_prepared, camera, tf, image_size, plan,
      inv_q, r_gc, r_cs, r_cl, r_rad, vox_s, vox_l) = (f32(v) for v in params)
     su, sv, inv_da, t0, t1 = fields
     planes, n_sub, n_lane = vol_prepared.shape
-    flat = vol_prepared.reshape(planes, -1)
+    flat = vol_prepared.reshape(-1)
+    plane = n_sub * n_lane
     dt = float(dt_unit) * inv_da.abs()
     k = tfp.shape[1] - 1
     rgb = torch.zeros(inv_da.shape + (3,), dtype=torch.float32,
@@ -361,7 +391,8 @@ def dvr_raymarch_plain(vol_prepared, camera, tf, image_size, plan,
     acc_a = torch.zeros_like(inv_da)
     taken = torch.zeros((), dtype=torch.int64, device=inv_da.device)
     for kk in range(planes + 1):
-        lo, hi = flat[max(kk - 1, 0)], flat[min(kk, planes - 1)]
+        lo_off = max(kk - 1, 0) * plane
+        hi_off = min(kk, planes - 1) * plane
         gbase = g0 + f32(kk - 1) * gk
         for s in range(plan["q"]):
             gamma = gbase + f32(s) * gs
@@ -383,21 +414,8 @@ def dvr_raymarch_plain(vol_prepared, camera, tf, image_size, plan,
                 active = active & inside
             if samples is not None:
                 taken += active.sum()
-            uc = torch.clamp(raw_u, 0.0, float(u_max))
-            vc = torch.clamp(raw_v, 0.0, float(v_max))
-            iu = torch.clamp(uc.to(torch.long), max=n_sub - 1)
-            iv = torch.clamp(vc.to(torch.long), max=n_lane - 1)
-            fu = uc - iu
-            fv = vc - iv
-            iu1 = torch.clamp(iu + 1, max=n_sub - 1)
-            iv1 = torch.clamp(iv + 1, max=n_lane - 1)
-
-            def tap(i, j):
-                idx = i * n_lane + j
-                return (1.0 - float(wz)) * lo[idx] + float(wz) * hi[idx]
-
-            val = ((1.0 - fu) * ((1.0 - fv) * tap(iu, iv) + fv * tap(iu, iv1))
-                   + fu * ((1.0 - fv) * tap(iu1, iv) + fv * tap(iu1, iv1)))
+            val = _sample_slab(flat, lo_off, hi_off, float(wz), raw_u, raw_v,
+                               u_max, v_max, n_sub, n_lane)
             u = torch.clamp((val - float(vmin)) * float(inv_vspan), 0.0, 1.0)
             c = [torch.full_like(u, float(tfp[1 + ch, 0])) for ch in range(4)]
             for i in range(k):
@@ -467,3 +485,151 @@ def dvr_raymarch(vol_prepared, camera, tf, image_size, plan,
     )
     _build.check(err, "raymarch_dvr")
     return rgb, alpha
+
+
+def _iso_params(plan, camera, iso_value):
+    """Host scalars of the iso march, float32: the layout of
+    ``IsoParams.p`` in ``csrc/raymarch.cu``."""
+    q = plan["q"]
+    g0, gk, gs, u0c, v0c, g0p = _common_params(plan, camera, q)
+    return np.asarray([
+        g0, gk, gs, plan["sub_extent"] - 1, plan["lane_extent"] - 1, u0c,
+        v0c, float(iso_value), g0p, 1.0 / gk, 1.0 / q,
+    ], np.float32)
+
+
+def iso_raymarch_plain(vol_prepared, camera, iso_value, image_size, plan,
+                       refine_steps: int = 8, samples=None):
+    """Plain version of B6: the march as a plane-order loop over all
+    rays at once (a found ray stops as a mask), then the bisection and
+    the gradients for every ray, kept where a ray found its crossing.
+    Returns :func:`iso_raymarch`'s five ``(H, W)`` tensors. A list passed
+    as ``samples`` receives the number of trilinear samples the rays
+    took: the march's samples up to each crossing, and ``refine_steps +
+    6`` for each found ray's refinement.
+
+    The positions and sample values that decide a crossing are single
+    float32 tensor operations, so they round as the kernel's do.
+    """
+    _check_prepared(vol_prepared, plan)
+    params = _iso_params(plan, camera, iso_value)
+    (g0, gk, gs, u_max, v_max, u0c, v0c, iso, g0p, inv_ga, inv_q) = (
+        np.float32(v) for v in params)
+    su, sv, inv_da, t0, t1 = _ray_fields(camera, image_size, plan,
+                                         vol_prepared.device)
+    planes, n_sub, n_lane = vol_prepared.shape
+    flat = vol_prepared.reshape(-1)
+    plane = n_sub * n_lane
+    f32 = np.float32
+    found = torch.zeros_like(inv_da, dtype=torch.bool)
+    have_prev = torch.zeros_like(found)
+    zero = torch.zeros_like(inv_da)
+    t_hit, f_lo, f_hi, prev = zero, zero, zero, zero
+    taken = torch.zeros((), dtype=torch.int64, device=inv_da.device)
+    for kk in range(planes + 1):
+        lo_off = max(kk - 1, 0) * plane
+        hi_off = min(kk, planes - 1) * plane
+        gbase = g0 + f32(kk - 1) * gk
+        for s in range(plan["q"]):
+            gamma = gbase + f32(s) * gs
+            wz = (f32(s) + f32(0.5)) * inv_q
+            t = inv_da * float(gamma)
+            live = (t >= t0) & (t <= t1) & ~found
+            if samples is not None:
+                taken += live.sum()
+            val = _sample_slab(flat, lo_off, hi_off, float(wz),
+                               su * float(gamma) + float(u0c),
+                               sv * float(gamma) + float(v0c), u_max, v_max,
+                               n_sub, n_lane)
+            active = live & (val < _NAN_THRESH)
+            f = val - float(iso)
+            crossing = active & have_prev & ((f >= 0.0) != (prev >= 0.0))
+            t_hit = torch.where(crossing, t, t_hit)
+            f_lo = torch.where(crossing, prev, f_lo)
+            f_hi = torch.where(crossing, f, f_hi)
+            found = found | crossing
+            prev = torch.where(active, f, prev)
+            have_prev = have_prev | active
+    if samples is not None:
+        samples.append(int(taken) + int(found.sum()) * (
+            refine_steps + 6 if refine_steps > 0 else 0))
+    if refine_steps <= 0:
+        return found, t_hit, f_lo, f_hi, zero
+
+    def sample_ray(gamma, du=0.0, dv=0.0, dz=0.0):
+        zc = torch.clamp((gamma - float(g0p)) * float(inv_ga) + dz, 0.0,
+                         float(planes - 1))
+        iz = torch.clamp(zc.to(torch.long), max=planes - 1)
+        iz1 = torch.clamp(iz + 1, max=planes - 1)
+        return _sample_slab(flat, iz * plane, iz1 * plane, zc - iz,
+                            (su * gamma + float(u0c)) + du,
+                            (sv * gamma + float(v0c)) + dv, u_max, v_max,
+                            n_sub, n_lane)
+
+    # Bisection in γ over [γ_hit − gs, γ_hit], γ_hit = t_hit·da as the TPU
+    # kernel recovers it; then ±1-voxel central differences.
+    g_hi = t_hit * (1.0 / inv_da)
+    g_lo = g_hi - float(gs)
+    fl = f_lo
+    for _ in range(refine_steps):
+        gm = 0.5 * (g_lo + g_hi)
+        fm = sample_ray(gm) - float(iso)
+        same = (fm >= 0.0) == (fl >= 0.0)
+        g_lo = torch.where(same, gm, g_lo)
+        fl = torch.where(same, fm, fl)
+        g_hi = torch.where(same, g_hi, gm)
+    g = 0.5 * (g_lo + g_hi)
+    outs = (g * inv_da,
+            sample_ray(g, dz=1.0) - sample_ray(g, dz=-1.0),
+            sample_ray(g, du=1.0) - sample_ray(g, du=-1.0),
+            sample_ray(g, dv=1.0) - sample_ray(g, dv=-1.0))
+    return (found,) + tuple(torch.where(found, o, 0.0) for o in outs)
+
+
+def iso_raymarch(vol_prepared, camera, iso_value, image_size, plan,
+                 refine_steps: int = 8):
+    """First crossing of ``iso_value`` along each pixel ray of a prepared
+    volume (:func:`prepare_raymarch_volume`).
+
+    Args:
+      vol_prepared: ``(A, S, L)`` float32 layout for ``plan``.
+      camera, image_size: the view and ``(width, height)``.
+      plan: :func:`plan_raymarch` result with its ``q``.
+      refine_steps: bisection steps of the crossing in the kernel.
+
+    Returns:
+      Five ``(H, W)`` tensors. With ``refine_steps > 0``: ``(found (bool),
+      t_surf, gA, gS, gL)``, the refined eye distance and the central
+      differences of ±1 voxel along the plan's (principal, sub, lane)
+      axes in the prepared layout. With ``refine_steps == 0``: ``(found,
+      t_hit, f_lo, f_hi, 0)``, the sample that crossed and ``f = value −
+      iso`` at it and at the active sample before it, for the torch
+      solvers. A ray without a crossing holds zeros. A CPU volume takes
+      :func:`iso_raymarch_plain`; a CUDA volume launches B6.
+    """
+    dev = vol_prepared.device
+    if dev.type == "cpu":
+        return iso_raymarch_plain(vol_prepared, camera, iso_value,
+                                  image_size, plan, refine_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"no raymarch kernel for device {dev}")
+    _build.require_cuda_tensor(vol_prepared, "vol_prepared", torch.float32,
+                               dev)
+    _check_prepared(vol_prepared, plan)
+    if refine_steps < 0:
+        raise ValueError(f"refine_steps {refine_steps} < 0")
+    params = _iso_params(plan, camera, iso_value)
+    fields = _ray_fields(camera, image_size, plan, dev).contiguous()
+    width, height = image_size
+    out = torch.empty((5, height, width), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return (out[0] > 0.5,) + tuple(out[1:])
+    planes, sub, lane = vol_prepared.shape
+    lib = _build.library()
+    _build.LAUNCHES["raymarch_iso"] += 1
+    err = lib.correrender_raymarch_iso(
+        vol_prepared.data_ptr(), planes, sub, lane, fields.data_ptr(), width,
+        height, params.ctypes.data, plan["q"], int(refine_steps),
+        out.data_ptr(), dev.index, _build.stream_of(out))
+    _build.check(err, "raymarch_iso")
+    return (out[0] > 0.5,) + tuple(out[1:])

@@ -53,3 +53,14 @@ def pearson_from_sums(n, sum_x, sum_y, sum_xy, sum_xx, sum_yy):
     den = torch.sqrt((n * sum_xx - sum_x * sum_x)
                      * (n * sum_yy - sum_y * sum_y))
     return (num / den).to(torch.float32)
+
+
+def pearson_from_moments(sum_y: torch.Tensor, sum_yy: torch.Tensor,
+                         sum_xy: torch.Tensor,
+                         ref: torch.Tensor) -> torch.Tensor:
+    """Pearson r from streamed per-voxel moments and the full ``(n,)``
+    reference series, in float32: the JAX repo's ``bench.py`` assemble
+    step (Σx and Σx² summed from ``ref``, then :func:`pearson_from_sums`'s
+    formula in the same operation order)."""
+    return pearson_from_sums(ref.shape[0], ref.sum(), sum_y, sum_xy,
+                             (ref * ref).sum(), sum_yy)

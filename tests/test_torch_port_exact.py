@@ -365,11 +365,6 @@ def test_unsupported_nan_mode_routes_to_dvr_render():
                        dvr_render(vol, tcam, ttf, **kw))
 
 
-def test_iso_render_exact_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        texact.iso_render_exact(torch.zeros((4, 4, 4)), None, 0.0)
-
-
 def test_sample_trilinear_matches_jax():
     rng = np.random.default_rng(2)
     vol = rng.normal(size=(5, 6, 7)).astype(np.float32)

@@ -214,7 +214,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_source_hash_covers_every_kernel_source():
     names = sorted(p.name for p in _build._sources())
     assert names == ["classify.cu", "kendall.cu", "ksg.cu", "ksg_banded.cu",
-                     "pearson.cu", "raymarch.cu", "shearwarp.cu",
+                     "moments.cu", "pearson.cu", "raymarch.cu", "shearwarp.cu",
                      "spearman.cu"]
     assert _build._source_hash() == _build._source_hash()
 
@@ -239,7 +239,20 @@ def test_synth_box_stack_is_seeded_and_planted():
     assert abs(field[2, 12, 3].item()) < 0.5
 
 
-def test_fixture_reexports_are_the_jax_package_generators():
-    assert tfixtures.synth_box_ensemble is jfixtures.synth_box_ensemble
-    with pytest.raises(AttributeError):
-        tfixtures.not_a_fixture  # noqa: B018
+@pytest.mark.parametrize("name,args", [
+    ("peak_profile", (np.linspace(-1.5, 1.5, 61),)),
+    ("peak_profile", (np.array([[0.0, 0.5], [0.99, 1.0]]),)),
+    ("synth_box_lambda_field", ()),
+    ("synth_box_lambda_field", (24, 20, 8)),
+    ("synth_box_lambda_field", (9, 7, 5)),
+    ("synth_box_ensemble", ()),
+    ("synth_box_ensemble", (16, 12, 8, 30)),
+    ("synth_box_ensemble", (9, 7, 5, 11, False, 3)),
+    ("synth_box_ensemble", (8, 4, 2, 100, True, 0, np.float64)),
+])
+def test_fixtures_equal_the_jax_package_generators(name, args):
+    # The port keeps its own numpy copies; they must give the same arrays.
+    got = getattr(tfixtures, name)(*args)
+    want = getattr(jfixtures, name)(*args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
