@@ -16,10 +16,12 @@ Phases, each asserting; any failure exits non-zero:
    degenerate domain), B5 exact marcher at 64³ and 512×288 (six
    orientations, NaN ignore and yellow, restriction in both metrics, a
    depth-limit plane, a rotated model matrix); B7 Spearman, B8 Kendall,
-   B9 KSG and B10 banded KSG at n = 37, 250 and 1000 with ties, a
-   repeated member, a NaN voxel and a zero-variance voxel, KSG with both
-   estimators, per-point counts equal, B10 also with a band of 16 (most
-   points repaired), against B9, and on mass ties without noise.
+   B9 KSG and B10 (the pruned x-order scan) at n = 37, 250 and 1000 with
+   ties, a repeated member, a NaN voxel and a zero-variance voxel, each
+   with a continuous and a quantized reference; B8 also at n = 1, 2, 33
+   and 4096; KSG with both estimators, per-point counts equal, B10 at
+   band widths 192 and 16 against B9, on mass ties without noise, and on
+   independent series at n = 1000 (its longest scans).
 4. BASELINE config 1 at its own size (128×128×32, 100 members,
    1280×720): ``render_correlation_fast`` through the kernels against the
    same function on the CPU (one thread), where it runs the plain
@@ -48,7 +50,9 @@ Phases, each asserting; any failure exits non-zero:
 9. The measure switch on the same stack: the Spearman, Kendall and KSG
    fields through ``correlate_field`` (B7, B8, B10) with counted
    launches, each held to its plain version on every 997th voxel, the
-   median of 5 field times; then a 1920×1080 KSG frame through
+   median of 5 field times beside the bound, a table row per kernel
+   (launches, field, bound, kernel and plain on every 997th voxel); then
+   a 1920×1080 KSG frame through
    ``render_correlation_fast(..., "mi_kraskov")`` (B10, K2, K3, warp):
    counted launches, the stage split and the peak memory.
 10. Eye-inside frame: a camera inside the volume through
@@ -63,9 +67,10 @@ Phases, each asserting; any failure exits non-zero:
 12. 48³ × 1000 members (the JAX bench's KSG size): the Spearman, Kendall
    and KSG fields through ``correlate_field`` (B7, B8, B10) once each
    with counted launches, and B9 through ``mi_ksg_cuda`` (no entry point
-   reaches it: B10 repairs in place); the field times, each kernel
+   reaches it: B10 scans exactly); the field times, each kernel
    against its plain version on a 4096-voxel subset with both times and
-   the bound, B10's repaired share, binned MI's torch time.
+   the bound, the share of B10's points whose answer needs a point
+   outside the rank band of 192, binned MI's torch time.
 13. B6 (the iso marcher) against its plain version at 64³ and 512×288:
    cameras along each axis, with and without flip, a model matrix, a
    NaN voxel, ``refine_steps`` 8 and 0; found masks equal, bars on t and
@@ -187,6 +192,7 @@ HEADLINE_IMAGE = (1920, 1080)
 EXACT_KERNEL_SIDE, EXACT_KERNEL_IMAGE = 64, (512, 288)
 CONFIG1_GRID, CONFIG1_IMAGE = (128, 128, 32), (1280, 720)  # (xs, ys, zs)
 MEASURE_KERNEL_N = (37, 250, 1000)
+KENDALL_EXTRA_N = (1, 2, 33, 4096)  # B8 also at these n
 CONFIG2_GRID, CONFIG2_MEMBERS = (96, 64, 32), 250
 CONFIG3_GRID, CONFIG3_MEMBERS = (48, 48, 24), 500
 CONFIG_CHECK_STEP = 16  # configs 2-3: every 16th voxel against the CPU
@@ -204,6 +210,32 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def measure_bounds(vs: int, n: int, k: int = 3) -> dict:
+    """The least work of B7-B10's functions on ``vs`` voxels of ``n``
+    members, whatever the kernel's algorithm: the series read once and
+    the (V,) field written; a comparison sort of n members is
+    n·log2(n) compare-exchanges of 2 operations."""
+    log2n = math.log2(n)
+    io_bytes = 4 * vs * n + 4 * n + 4 * vs
+    sort_ops = 2.0 * vs * n * log2n
+    # KSG: sort y (x is sorted once for all voxels); per point the k+1
+    # nearest Chebyshev distances (4 operations each) and the two
+    # marginal counts by binary search (2·log2(n) operations each).
+    ksg = bound(io_bytes, sort_ops + vs * n * (4.0 * (k + 1) + 4.0 * log2n))
+    return {
+        # Sort, the tie runs' ranks and the three rank moments (about 8
+        # operations a member).
+        "spearman": bound(io_bytes, sort_ops + 8.0 * vs * n),
+        # Knight's O(n log n) tau-b: a merge sort of y in x's order
+        # counting its exchanges, and the tie runs (about 4 operations a
+        # member).
+        "kendall": bound(io_bytes, sort_ops + 4.0 * vs * n),
+        # B9 and B10 compute the same function: one bound.
+        "mi_ksg": ksg,
+        "mi_ksg_banded": ksg,
+    }
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -907,7 +939,7 @@ def measure_inputs(n: int, gen, dev):
     y = torch.randn((96, n), generator=gen, device=dev)
     y[:16] = 0.8 * x + 0.6 * y[:16]
     y[16:40] = torch.round(y[16:40] * 2.0) / 2.0
-    y[40:48, 5] = y[40:48, 3]
+    y[40:48, min(5, n - 1)] = y[40:48, min(3, n - 1)]
     y[48, n // 2] = float("nan")
     y[49] = 1.0
     return y, {"continuous": x, "quantized": torch.round(x * 2.0) / 2.0}
@@ -949,8 +981,9 @@ def phase_kernels_measures(dev, errs: dict) -> None:
                 errs["mi_ksg_banded"] = max(errs["mi_ksg_banded"], err10)
                 print(f"[B9/B10 ksg] {label} est {est} W {w}: counts equal, "
                       f"|B9-plain| {err9:.3e}, |B10-B9|, |B10-plain| "
-                      f"<= {err10:.3e} (bar {ATOL_KSG}), B10 repaired "
-                      f"{int(info['repaired'].sum())} of {y.numel()} points")
+                      f"<= {err10:.3e} (bar {ATOL_KSG}), B10 points that "
+                      f"need one outside the band: "
+                      f"{int(info['repaired'].sum())} of {y.numel()}")
 
     for n in MEASURE_KERNEL_N:
         y, refs = measure_inputs(n, gen, dev)
@@ -971,12 +1004,28 @@ def phase_kernels_measures(dev, errs: dict) -> None:
         print(f"[B7 spearman, B8 kendall] n={n}: max|kernel-plain| "
               f"{errs['spearman']:.3e} (bar {ATOL_SPEARMAN}), "
               f"{errs['kendall']:.3e} (bar {ATOL_KENDALL})")
+    # B8 from a single member up, and at n = 4096 (two warps a block).
+    for n in KENDALL_EXTRA_N:
+        y, refs = measure_inputs(n, gen, dev)
+        for label, x in refs.items():
+            got = kendall_cuda(y, x)
+            torch.cuda.synchronize()
+            err = max_abs(got, kendall_plain(y, x))
+            assert err <= ATOL_KENDALL, (n, label, err)
+            assert bool(torch.isnan(got[48])), (n, label)
+            errs["kendall"] = max(errs["kendall"], err)
+        print(f"[B8 kendall] n={n}, continuous and quantized ref: "
+              f"max|kernel-plain| {errs['kendall']:.3e} (bar {ATOL_KENDALL})")
     # Mass ties without noise: three levels, whole tie classes at every
     # k-th distance.
     y, refs = measure_inputs(250, gen, dev)
     ksg_cases(torch.clamp(torch.round(y), -1.0, 1.0),
               torch.clamp(torch.round(refs["continuous"]), -1.0, 1.0),
               "n=250 mass ties, no noise", use_noise=False)
+    # Independent series at n = 1000: B10's longest scans.
+    x = torch.randn(1000, generator=gen, device=dev)
+    ksg_cases(torch.randn((96, 1000), generator=gen, device=dev), x,
+              "n=1000 independent")
 
 
 def phase_measures_grid(dev, card: str, errs: dict, stack: torch.Tensor,
@@ -986,11 +1035,12 @@ def phase_measures_grid(dev, card: str, errs: dict, stack: torch.Tensor,
     from correrender_tpu_torch.app.baseline_configs import config1_camera
     from correrender_tpu_torch.calculators.correlation import correlate_field
     from correrender_tpu_torch.ops.cuda import _build
-    from correrender_tpu_torch.ops.cuda.kendall_kernel import kendall_plain
+    from correrender_tpu_torch.ops.cuda.kendall_kernel import (
+        kendall_cuda, kendall_plain)
     from correrender_tpu_torch.ops.cuda.ksg_banded import (
-        mi_ksg_banded_plain)
+        mi_ksg_banded, mi_ksg_banded_plain)
     from correrender_tpu_torch.ops.cuda.spearman_kernel import (
-        spearman_plain)
+        spearman_cuda, spearman_plain)
     from correrender_tpu_torch.ops.mi_ksg import (
         maximum_mutual_information_kraskov)
     from correrender_tpu_torch.render.pipeline import (
@@ -1002,10 +1052,14 @@ def phase_measures_grid(dev, card: str, errs: dict, stack: torch.Tensor,
     ref = reference_series(stack, ref_point)
     series = stack.reshape(-1, n)
     idx = torch.arange(0, series.shape[0], GRID_CHECK_STEP, device=dev)
-    runs = (("spearman", "spearman", spearman_plain, ATOL_SPEARMAN),
-            ("kendall", "kendall", kendall_plain, ATOL_KENDALL),
-            ("mi_kraskov", "mi_ksg_banded", mi_ksg_banded_plain, ATOL_KSG))
-    for measure, kernel, plain, atol in runs:
+    sub = series[idx].contiguous()
+    bounds = measure_bounds(series.shape[0], n)
+    runs = (("spearman", "spearman", spearman_cuda, spearman_plain,
+             ATOL_SPEARMAN),
+            ("kendall", "kendall", kendall_cuda, kendall_plain, ATOL_KENDALL),
+            ("mi_kraskov", "mi_ksg_banded", mi_ksg_banded,
+             mi_ksg_banded_plain, ATOL_KSG))
+    for measure, kernel, fn, plain, atol in runs:
         correlate_field(stack, ref, measure)  # warm-up
         torch.cuda.synchronize()
         _build.reset_launch_counts()
@@ -1013,14 +1067,23 @@ def phase_measures_grid(dev, card: str, errs: dict, stack: torch.Tensor,
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
         assert launches[kernel] > 0, (measure, launches)
-        err = max_abs(field.reshape(-1)[idx], plain(series[idx], ref))
+        err = max_abs(field.reshape(-1)[idx], plain(sub, ref))
         assert err <= atol, (measure, err)
         errs[kernel] = max(errs[kernel], err)
         ms = median_ms(lambda: correlate_field(stack, ref, measure))
+        b_ms, b_by = bounds[kernel]
         print(f"[grid {card}] {side}^3 x {n} {measure}: field {ms:.3f} ms "
               f"(median of 5, {series.shape[0] / ms * 1e3:.4g} voxels/s), "
+              f"bound {b_ms:.4f} ms ({b_by}), field/bound {ms / b_ms:.1f}, "
               f"launches {launches[kernel]}; max|kernel-plain| {err:.3e} "
               f"over every {GRID_CHECK_STEP}th voxel (bar {atol})")
+        sub_ms = median_ms(lambda: fn(sub, ref))
+        plain_ms = time_once(lambda: plain(sub, ref))
+        print(f"[table {card}] {kernel} at {side}^3 x {n}: launches "
+              f"{launches[kernel]}, field {ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); on every {GRID_CHECK_STEP}th voxel "
+              f"({sub.shape[0]}): kernel {sub_ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms (one run)")
         stats[f"grid {measure}"] = ms
         del field
 
@@ -1152,30 +1215,7 @@ def phase_members(dev, card: str, errs: dict, stats: dict) -> None:
         "mi_ksg_banded": ("mi_kraskov", mi_ksg_banded, mi_ksg_banded_plain,
                           ATOL_KSG),
     }
-    # The least work of each function on these inputs, whatever the
-    # kernel's algorithm: the series read once and the (V,) field
-    # written; a comparison sort of n members is n·log2(n)
-    # compare-exchanges of 2 operations.
-    log2n = math.log2(n)
-    io_bytes = 4 * vs * n + 4 * n + 4 * vs
-    sort_ops = 2.0 * vs * n * log2n
-    # KSG: sort y (x is sorted once for all voxels); per point the k+1
-    # nearest Chebyshev distances (4 operations each) and the two
-    # marginal counts by binary search (2·log2(n) operations each).
-    ksg_bound = bound(io_bytes,
-                      sort_ops + vs * n * (4.0 * (k + 1) + 4.0 * log2n))
-    bounds = {
-        # Sort, the tie runs' ranks and the three rank moments (about 8
-        # operations a member).
-        "spearman": bound(io_bytes, sort_ops + 8.0 * vs * n),
-        # Knight's O(n log n) tau-b: a merge sort of y in x's order
-        # counting its exchanges, and the tie runs (about 4 operations a
-        # member).
-        "kendall": bound(io_bytes, sort_ops + 4.0 * vs * n),
-        # B9 and B10 compute the same function: one bound.
-        "mi_ksg": ksg_bound,
-        "mi_ksg_banded": ksg_bound,
-    }
+    bounds = measure_bounds(vs, n, k)
     for name, (measure, fn, plain, atol) in kernels.items():
         if measure:
             def run(measure=measure):
@@ -1200,7 +1240,7 @@ def phase_members(dev, card: str, errs: dict, stats: dict) -> None:
         if measure:
             path = f"main path correlate_field(..., {measure!r})"
         else:
-            path = "mi_ksg_cuda, not on the main path (B10 repairs in place)"
+            path = "mi_ksg_cuda, not on the main path (B10 scans exactly)"
         # The kernels line counts the main path's launches only.
         stats[name] = ((count if measure else 0), sub_ms, plain_ms) + (
             bounds[name])
@@ -1211,9 +1251,10 @@ def phase_members(dev, card: str, errs: dict, stats: dict) -> None:
               f"run), bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
               f"max|kernel-plain| {err:.3e} (bar {atol})")
     _, info = mi_ksg_banded(sub, ref, with_counts=True)
-    repaired = int(info["repaired"].sum())
-    print(f"[members] B10 repaired {repaired} of {vs * n} points "
-          f"({100 * repaired / (vs * n):.2f}%) with W = {band_width(n, k)}")
+    left = int(info["repaired"].sum())
+    print(f"[members] B10: {left} of {vs * n} points "
+          f"({100 * left / (vs * n):.2f}%) need a point outside the rank "
+          f"band of W = {band_width(n, k)}")
     ms = median_ms(lambda: correlate_field(stack, ref, "mi_binned"))
     print(f"[members {card}] mi_binned (torch einsum, no kernel) field "
           f"{ms:.3f} ms (median of 5)")

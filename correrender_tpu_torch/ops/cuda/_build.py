@@ -70,8 +70,8 @@ _SIGNATURES = {
     "correrender_chunk_moments": [_P, _I, _P, _P, _P, _L, _I, _I, _P],
     # series, xrank2, sums, v, n
     "correrender_spearman": [_P, _P, _P, _L, _I, _I, _P],
-    # series, ref, counts, v, n
-    "correrender_kendall": [_P, _P, _P, _L, _I, _I, _P],
+    # series, perm, gstart, counts, v, n
+    "correrender_kendall": [_P, _P, _P, _P, _L, _I, _I, _P],
     # series, x_noised, y_noise, psi_sum, counts, v, n, k, estimator
     "correrender_mi_ksg": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     # series, perm, xs_sorted, y_noise, psi_sum, counts, repaired, v, n,
@@ -196,7 +196,7 @@ def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 #: The rank and MI kernels hold the reference series and each warp's
 #: member series in shared memory (ksg_common.cuh); B10 also a sorted
-#: copy and a repair queue, which fit one warp's block up to n = 12288.
+#: copy, B8 a second buffer, which fit one warp's block up to n = 12288.
 MAX_MEMBERS = 12288
 
 

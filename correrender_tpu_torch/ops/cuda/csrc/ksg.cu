@@ -32,6 +32,36 @@ namespace {
 
 using namespace correrender;
 
+// The k-th distance of point (xi, yi) over points [j0, j1) of (x, y).
+template <int KMAX>
+__device__ __forceinline__ float kth_distance(const float* x, const float* y,
+                                              int j0, int j1, float xi,
+                                              float yi, int kp1) {
+  KSmallest<KMAX> best;
+  best.reset();
+  for (int j = j0; j < j1; ++j) best.push(chebyshev(xi, yi, x[j], y[j]), kp1);
+  return best.top[0];
+}
+
+// Estimator 2's per-axis extents of the neighbour set over [j0, j1).
+__device__ __forceinline__ void neighbour_extents(const float* x,
+                                                  const float* y, int j0,
+                                                  int j1, float xi, float yi,
+                                                  float r, float* ex,
+                                                  float* ey) {
+  float mx = -1.0f, my = -1.0f;
+  for (int j = j0; j < j1; ++j) {
+    const float dx = fabsf(__fsub_rn(x[j], xi));
+    const float dy = fabsf(__fsub_rn(y[j], yi));
+    if (fmaxf(dx, dy) <= r) {
+      mx = fmaxf(mx, dx);
+      my = fmaxf(my, dy);
+    }
+  }
+  *ex = mx;
+  *ey = my;
+}
+
 template <int KMAX>
 __global__ void ksg_kernel(const float* __restrict__ series,
                            const float* __restrict__ x_noised,

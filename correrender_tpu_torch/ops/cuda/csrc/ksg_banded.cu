@@ -1,34 +1,63 @@
-// B10: KSG mutual information with the reference's x-sorted rank band.
+// B10: KSG mutual information by an exact pruned scan in x order.
 //
 // Replaces correrender_tpu/ops/pallas/ksg_banded.py::mi_ksg_banded
 // (_banded_full). It computes what B9 (ksg.cu) computes, point for
-// point: the same k-th distances, the same counts, the same ψ terms;
-// only the order of the ψ sum differs.
+// point: the same k-th distances, extents, counts and ψ terms; only the
+// order of the ψ sum differs.
 //
-// The reference series is shared by every voxel, so the wrapper sorts
-// the noised x once (perm, xs). In that order the k-th neighbour of
-// point i lies inside the rank band j ∈ [i − W/2, i + W/2) whenever the
-// nearest x outside the band is farther than r + ε (the gap check of
-// ksg_banded.py:342-343): every point outside has |Δx| ≥ gap > r. A
-// point that fails the check joins its warp's repair queue (shared
-// memory, any length up to n); after the band pass the warp's lanes
-// recompute the queued points from their full rows, by the same device
-// functions B9 uses. So there is no repair tier and no escalation to B9
-// (the JAX kernel's 256-point tier and lax.cond exist because its
-// repair is a dense block of fixed height).
+// Bound on the H100: the pairs it evaluates, read from shared memory,
+// not the bytes of the stack. The TPU kernel takes each point's k-th
+// neighbour from a band of W = 192 ranks around it in x order (clamped
+// to n rounded up to 128, so the whole row at n = 100) and repairs the
+// points whose gap check fails; a port of that design evaluated about
+// 6·10¹¹ pairs/s on the H100, 1.6·10¹¹ pairs in 247 ms at 250³ × 100,
+// where reading the stack takes 1.9 ms. The walk below evaluates only
+// the slab around each point (87 ms there, PERF.md).
+//
+// Design: the wrapper sorts the noised reference once (perm, xs). For
+// point i in that order the kernel walks outward, j = i − 1, i − 2, ...
+// and j = i + 1, i + 2, ..., eight points down and eight up per round,
+// and keeps the k+1 smallest Chebyshev distances in registers
+// (KSmallest). A side stops once the last |Δx| it read is ≥ top[0], the
+// current (k+1)-th smallest: |Δx| never decreases along a side (the
+// rounded difference of ascending values is monotone), a point's
+// distance is at least its |Δx|, top[0] never rises, and a push equal
+// to top[0] leaves the multiset's (k+1)-th value as it is. So r is the
+// full row's, bit for bit; the up to seven points a side reads past its
+// stop are pushed as no-ops. Eight independent loads a round keep the
+// walk from waiting on each load in turn. Estimator 2's extents need
+// every j with dch ≤ r, ties included: a second walk re-reads the first
+// walk's range with the final r, then goes on while |Δx| ≤ r, and stops
+// early once both extents reach r (they cannot pass it; at r = 0 it
+// stops at once). Under mass ties r can be 0, and the first walk stops
+// at its first round that ends on |Δx| ≥ 0. When one side runs out the
+// walk goes on along the other; there is no band, gap check or repair
+// queue. For independent data a point's slab |Δx| < r holds about
+// √((k+1)·n) points (about 20 at n = 100), against the full row before.
+//
+// Lanes: LANES lanes take one voxel, 32 / LANES voxels a warp; lane
+// `sub` of a voxel takes points sub, sub + LANES, ...: 8 lanes up to
+// kNarrowMaxMembers members, so that small ensembles do not leave most
+// of a warp idle in its last round, else 32.
 //
 // Counts: x by binary search in xs; y by binary search in a copy of the
-// voxel's noised y that the warp sorts in shared memory (bitonic). Both
-// count exactly the j with v_j ∈ [v_i − r, v_i + r) that B9 counts by
-// scanning, for any radius, since comparisons against a sorted array
-// are monotone. Per point the work is the band (W ≈ 192 pairs) and two
-// binary searches instead of B9's 2n pairs.
+// voxel's noised y that its lanes sort (bitonic: every stage within a
+// chunk of up to 8 values a lane in registers and shuffles, the wider
+// stages in shared memory); the four searches of a point run
+// interleaved, without branches. Both count exactly the j with
+// v_j ∈ [v_i − r, v_i + r) that B9 counts by scanning, for any radius,
+// since comparisons against a sorted array are monotone. The ψ of a
+// count comes from a table of ψ(1..n) that each block fills once with
+// the same digamma_series B9 evaluates per point.
 //
-// Bound on the H100: f32 operations (the band's pairs), as for B9.
-//
-// Selection ties: KSmallest keeps the multiset, so tied distances need
-// no repair (the TPU kernel's tie-oblivious selection routes tied
-// columns to repair, _band_select's tie_ok).
+// `repaired` counts, per voxel, the points whose answer needs a point
+// outside the rank band [i − W/2, i + W/2): one with |Δx| < r, or for
+// estimator 2's extents |Δx| ≤ r. |Δx| grows along a side, so the first
+// point past each band edge decides (out_of_band); the points the walk
+// reads past its stop do not count. It shows how often the TPU kernel's
+// band assumption fails on these data; that kernel repairs a point
+// whenever an edge gap is ≤ r + 1e-6, so it repairs at least these.
+// Selection ties need nothing special: KSmallest keeps the multiset.
 
 #include <cuda_runtime.h>
 
@@ -38,39 +67,98 @@ namespace {
 
 using namespace correrender;
 
-constexpr float kBig = 1e30f;  // a gap past either end of the sorted x
-
-// #{j < len : a[j] < value} for ascending a.
-__device__ __forceinline__ int lower_bound(const float* a, int len,
-                                           float value) {
-  int lo = 0, hi = len;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < value) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+// The marginal counts #{j : v_j ∈ [v − r, v + r)} of a point in xs (n
+// values, read as +inf past them) and in ysorted (len values, +inf past
+// n; len a power of two), by four interleaved branch-free binary
+// searches: each finds #{j : a[j] < bound}, as a lower bound does.
+__device__ __forceinline__ void marginal_counts(const float* xs,
+                                                const float* ysorted, int n,
+                                                int len, float xi, float yi,
+                                                float rx, float ry, int* cx,
+                                                int* cy) {
+  const float bound[4] = {__fsub_rn(xi, rx), __fadd_rn(xi, rx),
+                          __fsub_rn(yi, ry), __fadd_rn(yi, ry)};
+  int pos[4] = {0, 0, 0, 0};
+  for (int half = len >> 1; half > 0; half >>= 1) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int j = pos[b] + half - 1;
+      const float a = b < 2 ? (j < n ? xs[j] : INFINITY) : ysorted[j];
+      pos[b] += a < bound[b] ? half : 0;
     }
   }
-  return lo;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int j = pos[b];
+    pos[b] += (b < 2 ? (j < n ? xs[j] : INFINITY) : ysorted[j]) < bound[b];
+  }
+  *cx = max(pos[1] - pos[0], 0);
+  *cy = max(pos[3] - pos[2], 0);
 }
 
-// #{j : lo ≤ a[j] < hi} for ascending a.
-__device__ __forceinline__ int range_count(const float* a, int len, float lo,
-                                           float hi) {
-  return max(lower_bound(a, len, hi) - lower_bound(a, len, lo), 0);
+// The compare-exchange stages (size, stride) of a bitonic sort, stride
+// from `top` down to 1, on the E·LANES values of a chunk held E to a
+// lane (lane sub holds global indices first + E·sub, ..., + E − 1): a
+// partner fewer than E places away is in the lane's own registers, one
+// E or more away in lane sub ^ (stride / E), a shuffle away. Equal
+// values compare alike in either order (−0 and +0 included), so min and
+// max keep the counts.
+template <int LANES, int E>
+__device__ __forceinline__ void register_stages(float (&r)[E], int first,
+                                                int sub, int size, int top) {
+#pragma unroll
+  for (int stride = E * LANES / 2; stride > 0; stride >>= 1) {
+    if (stride > top) continue;
+    if (stride < E) {
+#pragma unroll
+      for (int t = 0; t < E; ++t) {
+        if ((t & stride) == 0) {
+          const int u = t | stride;
+          const bool ascending = ((first + E * sub + t) & size) == 0;
+          const float lo = fminf(r[t], r[u]), hi = fmaxf(r[t], r[u]);
+          r[t] = ascending ? lo : hi;
+          r[u] = ascending ? hi : lo;
+        }
+      }
+    } else {
+      const int apart = stride / E;
+      const bool lower = (sub & apart) == 0;
+#pragma unroll
+      for (int t = 0; t < E; ++t) {
+        const float other = __shfl_xor_sync(kFullMask, r[t], apart);
+        const bool ascending = ((first + E * sub + t) & size) == 0;
+        r[t] = lower == ascending ? fminf(r[t], other) : fmaxf(r[t], other);
+      }
+    }
+  }
 }
 
-// Ascending bitonic sort of a[0, len) (len a power of two) by one warp.
-__device__ void warp_bitonic_sort(float* a, int len, int lane) {
-  for (int size = 2; size <= len; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = lane; t < len; t += 32) {
+// Ascending bitonic sort of a[0, len) (len a power of two, a multiple of
+// E·LANES) by the LANES lanes of one voxel; every lane of the warp takes
+// part in every step. Stages whose partners lie within a chunk of E·LANES
+// values run in registers, the wider ones in shared memory.
+template <int LANES, int E>
+__device__ void chunked_bitonic_sort(float* a, int len, int sub) {
+  constexpr int kChunk = E * LANES;
+  float r[E];
+  for (int first = 0; first < len; first += kChunk) {
+#pragma unroll
+    for (int t = 0; t < E; ++t) r[t] = a[first + E * sub + t];
+#pragma unroll
+    for (int size = 2; size <= kChunk; size <<= 1) {
+      register_stages<LANES, E>(r, first, sub, size, size / 2);
+    }
+#pragma unroll
+    for (int t = 0; t < E; ++t) a[first + E * sub + t] = r[t];
+  }
+  __syncwarp();
+  for (int size = 2 * kChunk; size <= len; size <<= 1) {
+    for (int stride = size / 2; stride >= kChunk; stride >>= 1) {
+      for (int t = sub; t < len; t += LANES) {
         const int partner = t ^ stride;
         if (partner > t) {
           const float lo = a[t], hi = a[partner];
-          const bool ascending = (t & size) == 0;
-          if ((lo > hi) == ascending) {
+          if ((lo > hi) == ((t & size) == 0)) {
             a[t] = hi;
             a[partner] = lo;
           }
@@ -78,32 +166,140 @@ __device__ void warp_bitonic_sort(float* a, int len, int lane) {
       }
       __syncwarp();
     }
+    for (int first = 0; first < len; first += kChunk) {
+#pragma unroll
+      for (int t = 0; t < E; ++t) r[t] = a[first + E * sub + t];
+      register_stages<LANES, E>(r, first, sub, size, kChunk / 2);
+#pragma unroll
+      for (int t = 0; t < E; ++t) a[first + E * sub + t] = r[t];
+    }
+    __syncwarp();
   }
 }
 
-// Estimator 2's extents over [a, b), the counts by binary search, the
-// per-point counts if asked; returns the point's ψ terms.
-__device__ __forceinline__ float finish_point(
-    const float* xs, const float* ys, const float* ysorted,
-    const int* __restrict__ perm, int* __restrict__ counts, long long voxel,
-    int n, int i, float r, int a, int b, int estimator) {
-  const float xi = xs[i], yi = ys[i];
-  float ex = 0.0f, ey = 0.0f;
-  if (estimator == 2) neighbour_extents(xs, ys, a, b, xi, yi, r, &ex, &ey);
-  float rx, ry;
-  count_radii(estimator, r, ex, ey, &rx, &ry);
-  const int cx = range_count(xs, n, __fsub_rn(xi, rx), __fadd_rn(xi, rx));
-  const int cy =
-      range_count(ysorted, n, __fsub_rn(yi, ry), __fadd_rn(yi, ry));
-  if (counts) {
-    const int p = __ldg(perm + i);  // back to the series' own order
-    counts[(voxel * n + p) * 2] = cx;
-    counts[(voxel * n + p) * 2 + 1] = cy;
+// Ascending sort of a voxel's y (len a power of two ≥ LANES): up to 8
+// values a lane in registers, in chunks of 8·LANES beyond.
+template <int LANES>
+__device__ __forceinline__ void sort_y(float* a, int len, int sub) {
+  if (len == LANES) {
+    chunked_bitonic_sort<LANES, 1>(a, len, sub);
+  } else if (len == 2 * LANES) {
+    chunked_bitonic_sort<LANES, 2>(a, len, sub);
+  } else if (len == 4 * LANES) {
+    chunked_bitonic_sort<LANES, 4>(a, len, sub);
+  } else {
+    chunked_bitonic_sort<LANES, 8>(a, len, sub);
   }
-  return psi_of_counts(estimator, cx, cy);
 }
 
+// |xs[j] − xi|, or +inf past either end.
+__device__ __forceinline__ float x_gap(const float* xs, int n, int j,
+                                       float xi) {
+  return j >= 0 && j < n ? fabsf(__fsub_rn(xs[j], xi)) : INFINITY;
+}
+
+// The points a side of the walk reads per round.
+constexpr int kWalkWidth = 8;
+
+// One round of a side: j, j + step, ..., kWalkWidth points, pushed (a
+// distance past top[0] is a no-op, one past either end +inf); false
+// once the side is done. j moves on by kWalkWidth·step.
 template <int KMAX>
+__device__ __forceinline__ bool walk_step(const float* xs, const float* ys,
+                                          int n, float xi, float yi,
+                                          int kp1, int step, int* j,
+                                          KSmallest<KMAX>* best) {
+  float d[kWalkWidth], dx_last = INFINITY;
+#pragma unroll
+  for (int u = 0; u < kWalkWidth; ++u) {
+    const int jj = *j + u * step;
+    const bool in = jj >= 0 && jj < n;
+    const float dx = in ? fabsf(__fsub_rn(xs[jj], xi)) : INFINITY;
+    d[u] = in ? fmaxf(dx, fabsf(__fsub_rn(ys[jj], yi))) : INFINITY;
+    dx_last = dx;
+  }
+#pragma unroll
+  for (int u = 0; u < kWalkWidth; ++u) best->push(d[u], kp1);
+  *j += kWalkWidth * step;
+  return dx_last < best->top[0];
+}
+
+// Point i's k-th distance by the pruned walk, a round down and a round
+// up at a time, each side until it is done; *lo and *hi are left at the
+// first points not visited.
+template <int KMAX>
+__device__ __forceinline__ float walk_kth(const float* xs, const float* ys,
+                                          int n, int i, float xi, float yi,
+                                          int kp1, int* lo_out,
+                                          int* hi_out) {
+  KSmallest<KMAX> best;
+  best.reset();
+  best.push(chebyshev(xi, yi, xs[i], ys[i]), kp1);
+  int lo = i - 1, hi = i + 1;
+  bool down = true, up = true;
+  while (down || up) {
+    if (down) down = walk_step(xs, ys, n, xi, yi, kp1, -1, &lo, &best);
+    if (up) up = walk_step(xs, ys, n, xi, yi, kp1, 1, &hi, &best);
+  }
+  *lo_out = max(lo, -1);
+  *hi_out = min(hi, n);
+  return best.top[0];
+}
+
+// Estimator 2's extents (max |dx|, |dy| over {j : dch_j ≤ r}): the
+// visited range (lo, hi) again with the final r, then on along each
+// side while |Δx| ≤ r. Neither extent can pass r, so a side stops once
+// both have reached it.
+__device__ __forceinline__ void walk_extents(const float* xs,
+                                             const float* ys, int n,
+                                             float xi, float yi, float r,
+                                             int lo, int hi, float* ex,
+                                             float* ey) {
+  float mx = -1.0f, my = -1.0f;
+  for (int j = lo + 1; j < hi; ++j) {
+    const float dx = fabsf(__fsub_rn(xs[j], xi));
+    const float dy = fabsf(__fsub_rn(ys[j], yi));
+    if (fmaxf(dx, dy) <= r) {
+      mx = fmaxf(mx, dx);
+      my = fmaxf(my, dy);
+    }
+  }
+  for (int step = -1; step <= 1; step += 2) {
+    int j = step < 0 ? lo : hi;
+    while (!(mx == r && my == r)) {
+      const float dx = x_gap(xs, n, j, xi);
+      if (!(dx <= r)) break;
+      const float dy = fabsf(__fsub_rn(ys[j], yi));
+      if (fmaxf(dx, dy) <= r) {
+        mx = fmaxf(mx, dx);
+        my = fmaxf(my, dy);
+      }
+      j += step;
+    }
+  }
+  *ex = mx;
+  *ey = my;
+}
+
+// Whether point i's answer needs a point outside its rank band of
+// half width `half_band` (see `repaired` above).
+__device__ __forceinline__ bool out_of_band(const float* xs, int n, int i,
+                                            float xi, float r,
+                                            int half_band, int estimator) {
+  const float gap = fminf(x_gap(xs, n, i - half_band - 1, xi),
+                          x_gap(xs, n, i + half_band, xi));
+  return estimator == 2 ? gap <= r : gap < r;
+}
+
+// ψ terms of one point from its marginal counts: psi_of_counts with
+// ψ(m), m = 1..n, read from the block's table of digamma_series values.
+__device__ __forceinline__ float psi_terms(const float* psi, int estimator,
+                                           int cx, int cy) {
+  const int off = estimator == 1 ? 0 : 1;
+  return psi[max(cx - off, 1)] + psi[max(cy - off, 1)];
+}
+
+template <int KMAX, int LANES>
 __global__ void ksg_banded_kernel(const float* __restrict__ series,
                                   const int* __restrict__ perm,
                                   const float* __restrict__ xs_sorted,
@@ -113,106 +309,115 @@ __global__ void ksg_banded_kernel(const float* __restrict__ series,
                                   int* __restrict__ repaired, long long v,
                                   int n, int npow2, int half_band, int kp1,
                                   int estimator) {
+  constexpr int kGroups = 32 / LANES;  // voxels per warp
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
+  const int group = lane / LANES, sub = lane % LANES;
   float* xs = smem;
-  float* ys = smem + n + warp * (2 * n + npow2);  // y in x-sorted order
-  float* ysorted = ys + n;                        // y ascending
-  int* queue = reinterpret_cast<int*>(ysorted + npow2);  // points to repair
+  float* psi = xs + n;  // ψ(m) at m = 1..n
+  // This voxel's y in x order, then ascending (first in its own order).
+  float* ys = psi + n + 1 + (warp * kGroups + group) * (n + npow2);
+  float* ysorted = ys + n;
   for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = xs_sorted[j];
-  const long long voxel = static_cast<long long>(blockIdx.x) * warps + warp;
+  for (int m = threadIdx.x; m <= n; m += blockDim.x) {
+    psi[m] = digamma_series(static_cast<float>(max(m, 1)));
+  }
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * warps + warp) * kGroups;
+  const long long voxel = first + group;
   const bool live = voxel < v;
   int nan_seen = 0;
-  if (live) {
-    const float* y = series + voxel * n;
-    for (int j = lane; j < npow2; j += 32) {
-      float yj = INFINITY;
-      if (j < n) {
-        const int p = __ldg(perm + j);
-        yj = __ldg(y + p);
-        nan_seen |= isnan(yj);
-        if (y_noise) yj = __fadd_rn(yj, __ldg(y_noise + p));
-        ys[j] = yj;
-      }
-      ysorted[j] = yj;
+  for (int j = sub; j < npow2; j += LANES) {
+    float yj = INFINITY;
+    if (live && j < n) {
+      yj = __ldcs(series + voxel * n + j);
+      nan_seen |= isnan(yj);
+      if (y_noise) yj = __fadd_rn(yj, __ldg(y_noise + j));
     }
+    ysorted[j] = yj;
   }
   __syncthreads();
-  if (!live) return;
-  if (__any_sync(kFullMask, nan_seen)) {
-    if (lane == 0) {
-      psi_sum[voxel] = NAN;
-      if (repaired) repaired[voxel] = 0;
-    }
-    return;
-  }
-  warp_bitonic_sort(ysorted, npow2, lane);
-  // Pass 1: every point through its band; a point that fails the gap
-  // check joins the warp's repair queue (lanes stay in step: a repair
-  // inside this loop would hold the other 31 lanes for a full row).
-  float acc = 0.0f;
-  int queued = 0;
-  for (int base = 0; base < n; base += 32) {
-    const int i = base + lane;
-    bool repair = false;
-    if (i < n) {
-      const float xi = xs[i], yi = ys[i];
-      const int j0 = max(i - half_band, 0), j1 = min(i + half_band, n);
-      const float r = kth_distance<KMAX>(xs, ys, j0, j1, xi, yi, kp1);
-      const float margin = __fadd_rn(r, kCountEpsilon);
-      const float gap_lo = i - half_band - 1 >= 0
-                               ? __fsub_rn(xi, xs[i - half_band - 1]) : kBig;
-      const float gap_hi =
-          i + half_band < n ? __fsub_rn(xs[i + half_band], xi) : kBig;
-      repair = !(gap_lo > margin && gap_hi > margin);
-      if (!repair) {
-        acc += finish_point(xs, ys, ysorted, perm, counts, voxel, n, i, r,
-                            j0, j1, estimator);
-      }
-    }
-    const unsigned votes = __ballot_sync(kFullMask, repair);
-    if (repair) queue[queued + __popc(votes & ((1u << lane) - 1u))] = i;
-    queued += __popc(votes);
-  }
+  if (first >= v) return;  // the whole warp
+  for (int j = sub; j < n; j += LANES) ys[j] = ysorted[__ldg(perm + j)];
   __syncwarp();
-  // Pass 2: the queued points from their full rows, B9's code, one lane
-  // each.
-  for (int q = lane; q < queued; q += 32) {
-    const int i = queue[q];
-    const float r = kth_distance<KMAX>(xs, ys, 0, n, xs[i], ys[i], kp1);
-    acc += finish_point(xs, ys, ysorted, perm, counts, voxel, n, i, r, 0, n,
-                        estimator);
+  const unsigned group_mask = (kFullMask >> (32 - LANES)) << (group * LANES);
+  const bool nan = (__ballot_sync(kFullMask, nan_seen) & group_mask) != 0;
+  sort_y<LANES>(ysorted, npow2, sub);
+  float acc = 0.0f;
+  int left = 0;
+  if (live && !nan) {
+    for (int i = sub; i < n; i += LANES) {
+      const float xi = xs[i], yi = ys[i];
+      int lo, hi;
+      const float r = walk_kth<KMAX>(xs, ys, n, i, xi, yi, kp1, &lo, &hi);
+      float ex = 0.0f, ey = 0.0f;
+      if (estimator == 2) {
+        walk_extents(xs, ys, n, xi, yi, r, lo, hi, &ex, &ey);
+      }
+      if (repaired) {
+        left += out_of_band(xs, n, i, xi, r, half_band, estimator);
+      }
+      float rx, ry;
+      count_radii(estimator, r, ex, ey, &rx, &ry);
+      int cx, cy;
+      marginal_counts(xs, ysorted, n, npow2, xi, yi, rx, ry, &cx, &cy);
+      if (counts) {
+        const int p = __ldg(perm + i);  // back to the series' own order
+        counts[(voxel * n + p) * 2] = cx;
+        counts[(voxel * n + p) * 2 + 1] = cy;
+      }
+      acc += psi_terms(psi, estimator, cx, cy);
+    }
   }
-  acc = warp_sum(acc);
-  if (lane == 0) {
-    psi_sum[voxel] = acc;
-    if (repaired) repaired[voxel] = queued;
+  acc = group_sum<LANES>(acc);
+  left = group_sum<LANES>(left);
+  if (live && sub == 0) {
+    psi_sum[voxel] = nan ? NAN : acc;
+    if (repaired) repaired[voxel] = left;
   }
 }
 
-template <int KMAX>
-cudaError_t launch(const float* series, const int* perm,
-                   const float* xs_sorted, const float* y_noise,
-                   float* psi_sum, int* counts, int* repaired, long long v,
-                   int n, int half_band, int kp1, int estimator,
-                   cudaStream_t stream) {
+struct Args {
+  const float* series;
+  const int* perm;
+  const float* xs_sorted;
+  const float* y_noise;
+  float* psi_sum;
+  int* counts;
+  int* repaired;
+  long long v;
+  int n, half_band, kp1, estimator;
+  cudaStream_t stream;
+};
+
+template <int KMAX, int LANES>
+cudaError_t launch(const Args& a) {
+  constexpr int kGroups = 32 / LANES;
   int npow2 = 32;
-  while (npow2 < n) npow2 <<= 1;
+  while (npow2 < a.n) npow2 <<= 1;
   int warps;
   size_t smem;
-  if (!launch_shape(n * sizeof(float), (2 * n + npow2) * sizeof(float),
-                    &warps, &smem)) {
+  if (!launch_shape((2 * a.n + 1) * sizeof(float),
+                    kGroups * (a.n + npow2) * sizeof(float), &warps,
+                    &smem)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = allow_shared(ksg_banded_kernel<KMAX>, smem);
+  cudaError_t err = allow_shared(ksg_banded_kernel<KMAX, LANES>, smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (v + warps - 1) / warps;
-  ksg_banded_kernel<KMAX><<<static_cast<unsigned>(blocks), warps * 32, smem,
-                            stream>>>(series, perm, xs_sorted, y_noise,
-                                      psi_sum, counts, repaired, v, n, npow2,
-                                      half_band, kp1, estimator);
+  const long long per_block = static_cast<long long>(warps) * kGroups;
+  const long long blocks = (a.v + per_block - 1) / per_block;
+  ksg_banded_kernel<KMAX, LANES>
+      <<<static_cast<unsigned>(blocks), warps * 32, smem, a.stream>>>(
+          a.series, a.perm, a.xs_sorted, a.y_noise, a.psi_sum, a.counts,
+          a.repaired, a.v, a.n, npow2, a.half_band, a.kp1, a.estimator);
   return cudaGetLastError();
+}
+
+template <int KMAX>
+cudaError_t launch_lanes(const Args& a) {
+  if (a.n <= kNarrowMaxMembers) return launch<KMAX, 8>(a);
+  return launch<KMAX, 32>(a);
 }
 
 }  // namespace
@@ -224,24 +429,21 @@ extern "C" int correrender_mi_ksg_banded(
     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const auto* s = static_cast<const float*>(series);
-  const auto* p = static_cast<const int*>(perm);
-  const auto* xs = static_cast<const float*>(xs_sorted);
-  const auto* ny = static_cast<const float*>(y_noise);
-  auto* psi = static_cast<float*>(psi_sum);
-  auto* c = static_cast<int*>(counts);
-  auto* rep = static_cast<int*>(repaired);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int kp1 = k + 1, hb = w_band / 2;
-  if (kp1 <= 4) {
-    return launch<4>(s, p, xs, ny, psi, c, rep, v, n, hb, kp1, estimator, st);
-  }
-  if (kp1 <= 8) {
-    return launch<8>(s, p, xs, ny, psi, c, rep, v, n, hb, kp1, estimator, st);
-  }
-  if (kp1 <= kMaxNeighbours) {
-    return launch<kMaxNeighbours>(s, p, xs, ny, psi, c, rep, v, n, hb, kp1,
-                                  estimator, st);
-  }
+  const Args a{static_cast<const float*>(series),
+               static_cast<const int*>(perm),
+               static_cast<const float*>(xs_sorted),
+               static_cast<const float*>(y_noise),
+               static_cast<float*>(psi_sum),
+               static_cast<int*>(counts),
+               static_cast<int*>(repaired),
+               v,
+               n,
+               w_band / 2,
+               k + 1,
+               estimator,
+               static_cast<cudaStream_t>(stream)};
+  if (a.kp1 <= 4) return launch_lanes<4>(a);
+  if (a.kp1 <= 8) return launch_lanes<8>(a);
+  if (a.kp1 <= kMaxNeighbours) return launch_lanes<kMaxNeighbours>(a);
   return cudaErrorInvalidValue;
 }

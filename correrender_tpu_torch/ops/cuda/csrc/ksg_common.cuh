@@ -5,11 +5,10 @@
 // select_kth). The same ψ series runs in torch in ops/special.py, so a
 // kernel and its plain version evaluate ψ alike.
 //
-// Layout shared by the four kernels: one warp per voxel. The reference
-// series (or its ranks) sits in shared memory once per block, each
-// warp's voxel series beside it. In the pairwise kernels a lane takes
-// points i = lane, lane + 32, ... and scans every j of the shared
-// arrays (all lanes read the same j: a broadcast, no bank conflicts).
+// Layout shared by the four kernels: one warp per voxel (B8 and B10:
+// four voxels a warp up to kNarrowMaxMembers members). The reference
+// series (or its ranks, or its order) sits in shared memory once per
+// block, each voxel's series beside it.
 
 #pragma once
 
@@ -26,6 +25,10 @@ constexpr int kMaxNeighbours = 16;
 constexpr size_t kMaxSharedBytes = 232448;
 constexpr size_t kTargetSharedBytes = 96 * 1024;
 constexpr int kMaxWarpsPerBlock = 8;
+// B8 and B10 give a voxel 8 lanes up to this many members, where a full
+// warp's last pass over the members would leave most lanes idle, and a
+// whole warp above it (PERF.md has the times of 32, 16 and 8 lanes).
+constexpr int kNarrowMaxMembers = 128;
 
 // Warps per block and dynamic shared bytes for `block_bytes` shared by
 // the block plus `warp_bytes` per warp; false when one warp cannot fit.
@@ -50,6 +53,17 @@ template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+  return v;
+}
+
+// Sum over the LANES lanes that share one voxel (B8, B10: LANES = 8 or
+// 32, 32 / LANES voxels a warp).
+template <int LANES, typename T>
+__device__ __forceinline__ T group_sum(T v) {
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(kFullMask, v, off);
+  }
   return v;
 }
 
@@ -123,36 +137,6 @@ __device__ __forceinline__ float psi_of_counts(int estimator, int cx, int cy) {
   }
   return digamma_series(fmaxf(fx - 1.0f, 1.0f)) +
          digamma_series(fmaxf(fy - 1.0f, 1.0f));
-}
-
-// The k-th distance of point (xi, yi) over points [j0, j1) of (x, y).
-template <int KMAX>
-__device__ __forceinline__ float kth_distance(const float* x, const float* y,
-                                              int j0, int j1, float xi,
-                                              float yi, int kp1) {
-  KSmallest<KMAX> best;
-  best.reset();
-  for (int j = j0; j < j1; ++j) best.push(chebyshev(xi, yi, x[j], y[j]), kp1);
-  return best.top[0];
-}
-
-// Estimator 2's per-axis extents of the neighbour set over [j0, j1).
-__device__ __forceinline__ void neighbour_extents(const float* x,
-                                                  const float* y, int j0,
-                                                  int j1, float xi, float yi,
-                                                  float r, float* ex,
-                                                  float* ey) {
-  float mx = -1.0f, my = -1.0f;
-  for (int j = j0; j < j1; ++j) {
-    const float dx = fabsf(__fsub_rn(x[j], xi));
-    const float dy = fabsf(__fsub_rn(y[j], yi));
-    if (fmaxf(dx, dy) <= r) {
-      mx = fmaxf(mx, dx);
-      my = fmaxf(my, dy);
-    }
-  }
-  *ex = mx;
-  *ey = my;
 }
 
 }  // namespace correrender

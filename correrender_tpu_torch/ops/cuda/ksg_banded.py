@@ -1,13 +1,21 @@
-"""B10: the banded KSG kernel (``csrc/ksg_banded.cu``) and its plain
-version.
+"""B10: the KSG kernel of the x-ordered scan (``csrc/ksg_banded.cu``)
+and its plain version.
 
-Counterpart of ``correrender_tpu/ops/pallas/ksg_banded.py``. The
-reference series is shared by every voxel, so it is sorted once here;
-the kernel finds each point's k-th neighbour inside a band of W ranks
-around it, checks per point that no point outside the band can be as
-near (the gap check), and recomputes a point that fails from its full
-row at once. The result is B9's, point for point: the band changes only
-the speed.
+Counterpart of ``correrender_tpu/ops/pallas/ksg_banded.py``, whose band
+of W ranks around each point in x order, gap check and repair tiers the
+kernel replaces with an exact pruned scan. The reference series is
+shared by every voxel, so it is sorted once here; per point the kernel
+walks outward in that order and stops a side once its |Δx| reaches the
+current k-th distance (estimator 2's extents: once |Δx| passes r),
+which gives the full row's k-th distance, extents and counts bit for
+bit. The result is B9's, point for point. ``w_band`` no longer changes
+what the kernel reads: it is checked as the JAX package checks it, and
+the ``repaired`` count of ``with_counts`` is, per voxel, the points
+whose answer needs a point outside the rank band of W around them (one
+with |Δx| < r; for estimator 2's extents |Δx| ≤ r), not the points the
+scan happened to read: how often the JAX kernel's band assumption fails
+on the data. The JAX kernel repairs a point whenever a band edge's gap
+is ≤ r + 1e-6, so it repairs at least these.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from correrender_tpu_torch.ops.cuda.ksg_kernel import (
     mi_ksg_plain,
     noised_reference,
 )
+from correrender_tpu_torch.ops.ranks import stable_order
 
 #: The default rank-band width (the JAX package's ``w_band``).
 W_BAND = 192
@@ -40,9 +49,8 @@ def mi_ksg_banded_plain(series: torch.Tensor, ref: torch.Tensor, k: int = 3,
                         noise=None, w_band: int = W_BAND,
                         with_counts: bool = False):
     """Plain PyTorch version of B10: the full-row answer (B9's plain
-    version). The band changes only the kernel's speed, never its
-    values, so the plain version does not band; ``w_band`` is checked
-    as the kernel checks it."""
+    version), which the kernel's pruned scan gives exactly; ``w_band``
+    is checked as the kernel checks it."""
     band_width(series.shape[-1], k, w_band)
     return mi_ksg_plain(series, ref, k, estimator, use_noise, noise,
                         with_counts)
@@ -52,18 +60,19 @@ def mi_ksg_banded(stack: torch.Tensor, ref: torch.Tensor, k: int = 3,
                   estimator: int = 1, use_noise: bool = True, noise=None,
                   w_band: int = W_BAND, with_counts: bool = False):
     """KSG MI field of a member-last stack against one reference series,
-    through the rank band.
+    by the pruned scan in x order.
 
     Args:
       stack: ``(..., n)`` float32 member series, contiguous.
       ref: ``(n,)`` float32 reference series on the same device.
       k, estimator: KSG's neighbour count and estimator (1 or 2).
       use_noise, noise: the tie-break noise (see :func:`mi_ksg_cuda`).
-      w_band: the rank-band width (speed only).
+      w_band: the JAX package's rank-band width, checked as it checks
+        it; the result does not depend on it.
       with_counts: also return ``{"counts": (..., n, 2) int32,
         "repaired": (...) int32}``, the per-point marginal counts and
-        the points per voxel recomputed from their full rows (none on
-        the CPU).
+        the points per voxel whose answer needs a point outside the
+        rank band of ``w_band`` (None on the CPU).
 
     Returns:
       ``(...)`` float32 MI. A CPU tensor takes
@@ -80,15 +89,30 @@ def mi_ksg_banded(stack: torch.Tensor, ref: torch.Tensor, k: int = 3,
             return out.reshape(lead)
         return out[0].reshape(lead), {
             "counts": out[1].reshape(lead + (n, 2)), "repaired": None}
+    psi, counts, repaired = banded_psi_sums(
+        series, ref, k, estimator, use_noise, noise, w, with_counts)
+    mi = mi_from_psi(psi, ref, k, estimator).reshape(lead)
+    if not with_counts:
+        return mi
+    return mi, {"counts": counts.reshape(lead + (n, 2)),
+                "repaired": repaired.reshape(lead)}
+
+
+def banded_psi_sums(series: torch.Tensor, ref: torch.Tensor, k: int,
+                    estimator: int, use_noise: bool, noise, w: int,
+                    with_counts: bool):
+    """Launch B10 on ``(V, n)`` CUDA series; returns the ``(V,)`` ψ sums and, with ``with_counts``, the
+    ``(V, n, 2)`` counts and ``(V,)`` points that need a point outside
+    the band (else None, None)."""
+    v, n = series.shape
     x, y_noise = noised_reference(ref, use_noise, noise)
-    perm = torch.argsort(x, stable=True).to(torch.int32)
-    xs = x[perm.long()].contiguous()
-    psi = torch.empty(v, dtype=torch.float32, device=stack.device)
+    perm, xs = stable_order(x)
+    psi = torch.empty(v, dtype=torch.float32, device=series.device)
     counts = repaired = None
     if with_counts:
         counts = torch.empty((v, n, 2), dtype=torch.int32,
-                             device=stack.device)
-        repaired = torch.empty(v, dtype=torch.int32, device=stack.device)
+                             device=series.device)
+        repaired = torch.empty(v, dtype=torch.int32, device=series.device)
     if v:
         lib = _build.library()
         _build.LAUNCHES["mi_ksg_banded"] += 1
@@ -97,10 +121,7 @@ def mi_ksg_banded(stack: torch.Tensor, ref: torch.Tensor, k: int = 3,
             y_noise.data_ptr() if y_noise is not None else None,
             psi.data_ptr(), counts.data_ptr() if with_counts else None,
             repaired.data_ptr() if with_counts else None, v, n, w, k,
-            estimator, stack.device.index, _build.stream_of(stack))
+            estimator, series.device.index,
+            _build.stream_of(series))
         _build.check(err, "mi_ksg_banded")
-    mi = mi_from_psi(psi, ref, k, estimator).reshape(lead)
-    if not with_counts:
-        return mi
-    return mi, {"counts": counts.reshape(lead + (n, 2)),
-                "repaired": repaired.reshape(lead)}
+    return psi, counts, repaired
