@@ -15,11 +15,15 @@ Phases, each asserting; any failure exits non-zero:
    composite (with and without kstop), B3 classify_volume (NaN,
    degenerate domain), B5 exact marcher at 64³ and 512×288 (six
    orientations, NaN ignore and yellow, restriction in both metrics, a
-   depth-limit plane, a rotated model matrix); B7 Spearman, B8 Kendall,
+   depth-limit plane, a rotated model matrix, transfer functions of 7
+   and 21 knots); B7 Spearman, B8 Kendall,
    B9 KSG and B10 (the pruned x-order scan) at n = 37, 250 and 1000 with
    ties, a repeated member, a NaN voxel and a zero-variance voxel, each
    with a continuous and a quantized reference; B8 also at n = 1, 2, 33
-   and 4096; KSG with both estimators, per-point counts equal, B10 at
+   and 4096; B7 also at n = 1, 2, 32, 33, 100, 128, 129, 1024, 1025 and
+   4096 (its lane, register and shared-memory boundaries) with rows of
+   signed zeros and a third reference (signed zeros and a NaN member);
+   KSG with both estimators, per-point counts equal, B10 at
    band widths 192 and 16 against B9, on mass ties without noise, and on
    independent series at n = 1000 (its longest scans).
 4. BASELINE config 1 at its own size (128×128×32, 100 members,
@@ -40,7 +44,8 @@ Phases, each asserting; any failure exits non-zero:
    config 1's camera and control-point TF: counted launches, B5 against
    its plain version on the same prepared inputs (which also counts the
    samples the rays took), the median of 5 frame times, B5's time beside
-   the plain version's (3 plain runs), the peak memory, and a
+   the plain version's (3 plain runs) and its samples/s, the peak
+   memory, and a
    ``torch.profiler`` split of 3 frames.
 8. Restricted and depth-clipped fast frame at the headline: the field →
    ``classify_volume`` (B3) × ``restriction_mask`` (radius 0.1 around the
@@ -67,7 +72,8 @@ Phases, each asserting; any failure exits non-zero:
 12. 48³ × 1000 members (the JAX bench's KSG size): the Spearman, Kendall
    and KSG fields through ``correlate_field`` (B7, B8, B10) once each
    with counted launches, and B9 through ``mi_ksg_cuda`` (no entry point
-   reaches it: B10 scans exactly); the field times, each kernel
+   reaches it: B10 scans exactly); the field times beside the whole
+   field's bound, each kernel
    against its plain version on a 4096-voxel subset with both times and
    the bound, the share of B10's points whose answer needs a point
    outside the rank band of 192, binned MI's torch time.
@@ -107,6 +113,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import time
@@ -193,6 +200,9 @@ EXACT_KERNEL_SIDE, EXACT_KERNEL_IMAGE = 64, (512, 288)
 CONFIG1_GRID, CONFIG1_IMAGE = (128, 128, 32), (1280, 720)  # (xs, ys, zs)
 MEASURE_KERNEL_N = (37, 250, 1000)
 KENDALL_EXTRA_N = (1, 2, 33, 4096)  # B8 also at these n
+# B7 also at its lane and register boundaries (8 lanes up to 128 members,
+# 32 up to 1024, the shared path above).
+SPEARMAN_EXTRA_N = (1, 2, 32, 33, 100, 128, 129, 1024, 1025, 4096)
 CONFIG2_GRID, CONFIG2_MEMBERS = (96, 64, 32), 250
 CONFIG3_GRID, CONFIG3_MEMBERS = (48, 48, 24), 500
 CONFIG_CHECK_STEP = 16  # configs 2-3: every 16th voxel against the CPU
@@ -291,12 +301,16 @@ def phase_build() -> None:
     entries = ("pearson_kernel", "classify_cf_kernel",
                "classify_volume_kernel", "composite_kernel",
                "raymarch_dvr_kernel", "raymarch_iso_kernel",
-               "spearman_kernel", "kendall_kernel", "ksg_kernel",
-               "ksg_banded_kernel", "moments_kernel")
+               "spearman_regs_kernel", "spearman_shared_kernel",
+               "kendall_kernel", "ksg_kernel", "ksg_banded_kernel",
+               "moments_kernel")
     entry = "?"
     for line in log.splitlines():
         if "entry function" in line:  # ptxas names the kernel first
             entry = next((e for e in entries if e in line), "?")
+            # A template instance: its arguments, e.g. ILi8ELi16ELi0E.
+            args = re.search(r"kernel(I(?:Li-?\d+E)+)", line)
+            entry += f" {args.group(1)}" if args else ""
         elif "registers" in line or "spill" in line:
             print(f"[build] ptxas {entry}: {line.strip()}")
 
@@ -463,15 +477,24 @@ def phase_kernels_exact(dev, errs: dict) -> None:
          dict(restriction=((0.02, -0.01, 0.0), 0.09, "Chebyshev"))),
         ("depth plane", near, dict(depth_limit=depth_plane(near, size, dev))),
         ("model matrix", near, dict(model_matrix=rotation_y(30.0))),
+        ("7 knots", near, dict(tf=TransferFunction.from_colormap(
+            "viridis", domain=(lo, hi), device=dev,
+            opacity_points=((0.0, 0.1), (0.3, 0.0), (0.8, 0.6))))),
+        ("21 knots", near, dict(tf=TransferFunction.from_control_points(
+            [(x, (x, 1.0 - x, 0.5 * x)) for x in np.linspace(0.0, 1.0, 11)],
+            [(x, 0.5 + 0.4 * np.sin(9.0 * x))
+             for x in np.linspace(0.05, 0.95, 10)],
+            domain=(lo, hi), device=dev))),
     ]
     for name, cam, kw in runs:
         model = kw.pop("model_matrix", None)
+        tf_run = kw.pop("tf", tf)
         plan = plan_raymarch(cam, vol.shape, size, q=10, model_matrix=model)
         prep = prepare_raymarch_volume(vol, plan["axis_world"], plan["flip"],
                                        plan["lane_axis"])
-        rgb, a = dvr_raymarch(prep, cam, tf, size, plan, **kw)
+        rgb, a = dvr_raymarch(prep, cam, tf_run, size, plan, **kw)
         torch.cuda.synchronize()
-        rgb_p, a_p = dvr_raymarch_plain(prep, cam, tf, size, plan, **kw)
+        rgb_p, a_p = dvr_raymarch_plain(prep, cam, tf_run, size, plan, **kw)
         err = max(max_abs(rgb, rgb_p), max_abs(a, a_p))
         print(f"[B5 raymarch_dvr] {name}: max|kernel-plain| {err:.3e} "
               f"(bar {ATOL_RAYMARCH}), mean alpha {float(a.mean()):.4f}")
@@ -787,10 +810,12 @@ def phase_exact(dev, card: str, errs: dict, stack: torch.Tensor):
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[exact {card}] peak max_memory_allocated {peak / 2**30:.2f} GiB")
     # B5's bound: the prepared volume read once and the image written; a
-    # trilinear sample, the TF's hinges, the opacity and OVER (about 50
+    # trilinear sample, the TF's segment, the opacity and OVER (about 50
     # flops) for each sample the rays took (counted by the plain march).
-    print(f"[exact] samples taken: {samples[0]} "
-          f"({samples[0] / (image_size[0] * image_size[1]):.1f} per ray)")
+    print(f"[exact {card}] samples taken: {samples[0]} "
+          f"({samples[0] / (image_size[0] * image_size[1]):.1f} per ray), "
+          f"B5 {samples[0] / kernel_ms * 1e3:.4g} samples/s over the "
+          f"wrapper's time (ray setup included)")
     b5_bound = bound(prep.numel() * 4 + 16 * image_size[0] * image_size[1],
                      50 * samples[0])
     return {"raymarch_dvr": (launches["raymarch_dvr"], kernel_ms,
@@ -1016,6 +1041,29 @@ def phase_kernels_measures(dev, errs: dict) -> None:
             errs["kendall"] = max(errs["kendall"], err)
         print(f"[B8 kendall] n={n}, continuous and quantized ref: "
               f"max|kernel-plain| {errs['kendall']:.3e} (bar {ATOL_KENDALL})")
+    # B7 at its boundaries, with three references (continuous,
+    # quantized, and quantized with signed zeros and a NaN member) and
+    # rows of signed zeros beside measure_inputs' ties and NaN voxel.
+    for n in SPEARMAN_EXTRA_N:
+        y, refs = measure_inputs(n, gen, dev)
+        zeros = torch.round(y[50:56]) * 0.0
+        flip = torch.rand(zeros.shape, generator=gen, device=dev) < 0.5
+        y[50:56] = torch.where(flip, -zeros, zeros)
+        y[56, : (n + 1) // 2] = -0.0
+        signed = refs["quantized"].clone()
+        signed[(signed == 0) & (torch.arange(n, device=dev) % 2 == 1)] = -0.0
+        signed[n // 3] = float("nan")
+        refs["signed zeros, NaN"] = signed
+        for label, x in refs.items():
+            got = spearman_cuda(y, x)
+            torch.cuda.synchronize()
+            err = max_abs(got, spearman_plain(y, x))
+            assert err <= ATOL_SPEARMAN, (n, label, err)
+            assert bool(torch.isnan(got[49])), (n, label)  # zero variance
+            errs["spearman"] = max(errs["spearman"], err)
+        print(f"[B7 spearman] n={n}, {len(refs)} references: "
+              f"max|kernel-plain| {errs['spearman']:.3e} "
+              f"(bar {ATOL_SPEARMAN})")
     # Mass ties without noise: three levels, whole tie classes at every
     # k-th distance.
     y, refs = measure_inputs(250, gen, dev)
@@ -1216,6 +1264,7 @@ def phase_members(dev, card: str, errs: dict, stats: dict) -> None:
                           ATOL_KSG),
     }
     bounds = measure_bounds(vs, n, k)
+    field_bounds = measure_bounds(series.shape[0], n, k)
     for name, (measure, fn, plain, atol) in kernels.items():
         if measure:
             def run(measure=measure):
@@ -1246,7 +1295,9 @@ def phase_members(dev, card: str, errs: dict, stats: dict) -> None:
             bounds[name])
         print(f"[members {card}] {side}^3 x {n} {name} through {path}: "
               f"launches {count}, field {full_ms:.3f} ms (median of 5, "
-              f"{series.shape[0] / full_ms * 1e3:.4g} voxels/s); {vs}-voxel "
+              f"{series.shape[0] / full_ms * 1e3:.4g} voxels/s), field bound "
+              f"{field_bounds[name][0]:.4f} ms ({field_bounds[name][1]}); "
+              f"{vs}-voxel "
               f"subset: kernel {sub_ms:.3f} ms, plain {plain_ms:.3f} ms (one "
               f"run), bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
               f"max|kernel-plain| {err:.3e} (bar {atol})")

@@ -57,9 +57,15 @@ _SIGNATURES = {
     # field, n, lutp, R, lo, hi, out
     "correrender_classify_volume": [_P, _L, _P, _I, _F, _F, _P, _I, _P],
     # vol, planes, sub_extent, lane_extent, fields, width, height,
-    # params (host), tfp (host), k, q, nan_mode, restriction, rgb, alpha
+    # params (host), TF segment table (host), k, q, nan_mode,
+    # restriction, rgb, alpha
     "correrender_raymarch_dvr": [
         _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P,
+    ],
+    # the same, then tile_width, probe, samples (ablate_raymarch.py only)
+    "correrender_raymarch_dvr_probe": [
+        _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I,
+        _P, _I, _P,
     ],
     # vol, planes, sub_extent, lane_extent, fields, width, height,
     # params (host), q, refine_steps, out
@@ -70,6 +76,8 @@ _SIGNATURES = {
     "correrender_chunk_moments": [_P, _I, _P, _P, _P, _L, _I, _I, _P],
     # series, xrank2, sums, v, n
     "correrender_spearman": [_P, _P, _P, _L, _I, _I, _P],
+    # series, xrank2, sums, v, n, lanes, probe (ablate_spearman.py only)
+    "correrender_spearman_probe": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
     # series, perm, gstart, counts, v, n
     "correrender_kendall": [_P, _P, _P, _P, _L, _I, _I, _P],
     # series, x_noised, y_noise, psi_sum, counts, v, n, k, estimator

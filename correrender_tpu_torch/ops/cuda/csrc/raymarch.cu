@@ -17,7 +17,7 @@
 //            bilinear sample at (clamp(raw_u), clamp(raw_v))
 //   active on t = γ·inv_da ∈ [t0, t1] (t1 already holds a depth limit)
 //            and inside the restriction ball (tested on raw_u, raw_v)
-//   sample > 1e20 ⇒ NaN (sentinel) ⇒ nan_mode; hinge transfer function
+//   sample > 1e20 ⇒ NaN (sentinel) ⇒ nan_mode; the transfer function
 //   alpha = 1 − exp(−tf_a·dt·atten), dt = dt_unit·|inv_da|; OVER
 //
 // The ray stops once its alpha reaches 0.999 (the reference shader's
@@ -37,33 +37,61 @@
 // Precision: plain f32 arithmetic, no tensor cores and no texture
 // filtering (its 8-bit fractional weights would miss the bars). The
 // positions that decide whether a sample counts (γ, t, raw_u, raw_v and
-// the ball distances) and the sample value itself (which side of the
-// iso value it lies on) use __fadd_rn / __fmul_rn, which the compiler
+// the ball distances) use __fadd_rn / __fmul_rn, which the compiler
 // never contracts into FMAs, so every such test rounds as in the plain
 // PyTorch version: a flipped test at the box entry would change a DVR
-// pixel by a whole sample's alpha, and an iso hit by a whole sub-step.
+// pixel by a whole sample's alpha. B6 also rounds the sample value
+// itself op by op (sample_slab: which side of the iso value it lies on
+// moves a hit by a whole sub-step). B5 does not: its sample value
+// (CellTaps::sample) contracts into FMAs, indexes a plane with 32-bit
+// offsets and keeps a ray's eight taps while its samples stay in one
+// cell, about 1e-7 from the plain version's value.
 //
-// Bound on the H100: the eight trilinear loads per sample, served by L1
-// and L2 (a warp is a 32×1 row of pixels whose rays sample neighbouring
-// voxels), and for B5 the hinge sum (K ≤ 24 knots × 4 channels). The
-// transfer function and all scalars travel in the kernel's parameter
-// block (constant bank), read uniformly by every thread.
+// B5's transfer function is the same piecewise-linear function as the
+// plain version's hinge sum, in segment form (raymarch_kernel.py::
+// tf_segments): per knot i the four channels' value at the knot and the
+// slope to the next (0 after the last), rounded to f32 once from
+// float64. A block copies the table from its parameter block into shared
+// memory once; per sample a binary search over the knots (ceil(log2 K)
+// steps, unrolled: 2 for config 1's 3 knots, at most 5) finds the
+// segment, and c = value_i + slope_i·(u − knot_i) is 4 FMAs. The table
+// stays out of the constant bank in the loop: a divergent index there
+// serialises.
+//
+// Bound on the H100: the arithmetic per sample, and the eight loads of
+// each cell a ray enters, served by L1 and L2. B5's warps cover 8 × 4 pixel
+// tiles (kDvrTileWidth; 32 × 1 rows, B6's shape, are the other
+// variant), whose rays sample a compact patch of voxels and end at
+// similar depths. The scalars travel in the parameter block (constant
+// bank), read uniformly by every thread.
+//
+// correrender_raymarch_dvr_probe launches variants of B5 for
+// ops/cuda/ablate_raymarch.py only: the other tile, and probes that
+// change the answer on purpose (no TF search, one tap, no expf), with
+// the samples each variant took counted.
 
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 namespace {
 
 constexpr int kMaxKnots = 24;
+constexpr int kKnotSlots = 32;  // the search's table: knots, then +inf
 constexpr float kNanThresh = 1e20f;
 constexpr float kExitAlpha = 0.999f;
+constexpr int kDvrTileWidth = 8;  // B5's warp tile: 8 × 4 pixels
+constexpr int kBlockThreads = 256;
+
+// Probes of B5 (ablate_raymarch.py).
+constexpr int kShipped = 0, kNoTfSearch = 1, kOneTap = 2, kNoExp = 3;
 
 struct RayParams {
   // g0 gk gs u_max v_max u0c v0c atten vmin inv_vspan dt_unit inv_q
   // r_gc r_cs r_cl r_rad vox_s vox_l
   float p[18];
-  float knots[kMaxKnots];
-  float base[4];
-  float slope[4][kMaxKnots];
+  float knots[kKnotSlots];       // ascending, +inf past the last
+  float seg[kMaxKnots][8];       // value_0..3, slope_0..3 per knot
   int k, q, nan_mode, restriction, planes, sub, lane, width, height;
 };
 
@@ -113,11 +141,81 @@ __device__ __forceinline__ float sample_slab(
   return __fadd_rn(__fmul_rn(gu, a), __fmul_rn(fu, b));
 }
 
-__global__ void __launch_bounds__(256) raymarch_dvr_kernel(
+// B5's sample: the z-lerp by wz between the slab's two planes of the
+// bilinear sample at (clamp(raw_u), clamp(raw_v)), in the plain
+// version's formula with products and sums left to contract into FMAs.
+// The eight taps sit at 32-bit offsets from the slab's 64-bit plane
+// pointer plo: (iu, iv), + dv, + du, + du + dv, and the same + dz in the
+// far plane, with du = lane and dv = 1 where the volume has two voxels
+// along the axis (else 0). The cell's corner is kept one voxel inside the
+// far edge (iu ≤ sub − 2), where the weight fu = 1 gives the edge voxel's
+// value exactly as the plain version's clamped taps do (1·b + 0·a). A ray
+// keeps its cell's taps while its samples stay in that cell of the slab,
+// so a sample loads only where its ray enters a new cell; the value is
+// the same either way.
+struct CellTaps {
+  int cell = -1;  // the cell's offset in the plane; -1: none loaded
+  float lo[4], hi[4];
+
+  __device__ __forceinline__ float sample(const float* __restrict__ plo,
+                                          int dz, float wz, float raw_u,
+                                          float raw_v, float u_max,
+                                          float v_max, int iu_max,
+                                          int iv_max, int du, int dv,
+                                          int lane) {
+    const float uc = fminf(fmaxf(raw_u, 0.f), u_max);
+    const float vc = fminf(fmaxf(raw_v, 0.f), v_max);
+    const int iu = min(static_cast<int>(uc), iu_max);
+    const int iv = min(static_cast<int>(vc), iv_max);
+    const float fu = uc - static_cast<float>(iu);
+    const float fv = vc - static_cast<float>(iv);
+    const int off = iu * lane + iv;
+    if (off != cell) {
+      cell = off;
+      const float* __restrict__ p = plo + off;
+      const int at[4] = {0, dv, du, du + dv};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        lo[t] = __ldg(p + at[t]);
+        hi[t] = __ldg(p + dz + at[t]);
+      }
+    }
+    const float wl = 1.f - wz;
+    const float gv = 1.f - fv;
+    const float a =
+        gv * (wl * lo[0] + wz * hi[0]) + fv * (wl * lo[1] + wz * hi[1]);
+    const float b =
+        gv * (wl * lo[2] + wz * hi[2]) + fv * (wl * lo[3] + wz * hi[3]);
+    return (1.f - fu) * a + fu * b;
+  }
+};
+
+// Warp tile TW × (32 / TW) pixels; a block of 8 warps covers 32 × 8.
+template <int TW>
+__device__ __forceinline__ void tile_pixel(int* x, int* y) {
+  constexpr int kTileH = 32 / TW, kWarpsX = 32 / TW;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  *x = blockIdx.x * 32 + (warp % kWarpsX) * TW + lane % TW;
+  *y = blockIdx.y * 8 + (warp / kWarpsX) * kTileH + lane / TW;
+}
+
+// STEPS: the binary search's steps, 2^STEPS ≥ K (knot slots past K
+// hold +inf).
+template <int TW, int PROBE, int STEPS>
+__global__ void __launch_bounds__(kBlockThreads) raymarch_dvr_kernel(
     const float* __restrict__ vol, const float* __restrict__ fields,
-    const RayParams P, float* __restrict__ rgb, float* __restrict__ alpha) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+    const __grid_constant__ RayParams P, float* __restrict__ rgb,
+    float* __restrict__ alpha, unsigned long long* __restrict__ samples) {
+  __shared__ float s_knots[kKnotSlots];
+  __shared__ float4 s_seg[kMaxKnots][2];
+  if (threadIdx.x < kKnotSlots) s_knots[threadIdx.x] = P.knots[threadIdx.x];
+  if (threadIdx.x < 8 * P.k) {
+    reinterpret_cast<float*>(s_seg)[threadIdx.x] =
+        P.seg[threadIdx.x / 8][threadIdx.x % 8];
+  }
+  __syncthreads();
+  int x, y;
+  tile_pixel<TW>(&x, &y);
   if (x >= P.width || y >= P.height) return;
   const float g0 = P.p[0], gk = P.p[1], gs = P.p[2];
   const float u_max = P.p[3], v_max = P.p[4], u0c = P.p[5], v0c = P.p[6];
@@ -135,15 +233,21 @@ __global__ void __launch_bounds__(256) raymarch_dvr_kernel(
   const float t1 = fields[4 * n + p];
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_a = 0.f;
+  unsigned taken = 0;
   if (t1 >= t0) {  // the ray meets the box in front of its depth limit
     const float dt = dt_unit * fabsf(inv_da);
     int klo, khi;
     slab_window(t0, t1, inv_da, g0, gk, P.planes, &klo, &khi);
-    const long long plane = static_cast<long long>(P.sub) * P.lane;
+    const int plane = P.sub * P.lane;  // ≤ 2³⁰ (checked at launch)
+    const int iu_max = max(P.sub - 2, 0), iv_max = max(P.lane - 2, 0);
+    const int du = P.sub > 1 ? P.lane : 0, dv = P.lane > 1 ? 1 : 0;
     bool done = false;
     for (int kk = klo; kk <= khi && !done; ++kk) {
-      const float* __restrict__ plo = vol + max(kk - 1, 0) * plane;
-      const float* __restrict__ phi = vol + min(kk, P.planes - 1) * plane;
+      const int zlo = max(kk - 1, 0), zhi = min(kk, P.planes - 1);
+      const float* __restrict__ plo =
+          vol + static_cast<long long>(zlo) * plane;
+      const int dz = (zhi - zlo) * plane;
+      CellTaps taps;
       const float gbase = __fadd_rn(g0, __fmul_rn(static_cast<float>(kk - 1), gk));
       for (int s = 0; s < P.q; ++s) {
         const float gamma = gamma_at(gbase, s, gs);
@@ -166,19 +270,35 @@ __global__ void __launch_bounds__(256) raymarch_dvr_kernel(
           }
           if (!inside) continue;
         }
+        ++taken;
         const float wz = (static_cast<float>(s) + 0.5f) * inv_q;
-        const float val = sample_slab(plo, phi, wz, raw_u, raw_v, u_max, v_max,
-                                      P.sub, P.lane);
+        float val;
+        if (PROBE == kOneTap) {
+          const float uc = fminf(fmaxf(raw_u, 0.f), u_max);
+          const float vc = fminf(fmaxf(raw_v, 0.f), v_max);
+          val = __ldg(plo + static_cast<int>(uc) * P.lane +
+                      static_cast<int>(vc));
+        } else {
+          val = taps.sample(plo, dz, wz, raw_u, raw_v, u_max, v_max, iu_max,
+                            iv_max, du, dv, P.lane);
+        }
 
         const float u = fminf(fmaxf((val - vmin) * inv_vspan, 0.f), 1.f);
-        float c0 = P.base[0], c1 = P.base[1], c2 = P.base[2], c3 = P.base[3];
-        for (int i = 0; i < P.k; ++i) {
-          const float h = fmaxf(u - P.knots[i], 0.f);
-          c0 += P.slope[0][i] * h;
-          c1 += P.slope[1][i] * h;
-          c2 += P.slope[2][i] * h;
-          c3 += P.slope[3][i] * h;
+        int i = 0;  // the last knot ≤ u (knot 0 is ≤ 0)
+        if (PROBE == kNoTfSearch) {
+          i = min(static_cast<int>(u * static_cast<float>(P.k - 1)), P.k - 1);
+        } else {
+#pragma unroll
+          for (int step = 1 << (STEPS - 1); step > 0; step >>= 1) {
+            if (s_knots[i + step] <= u) i += step;
+          }
         }
+        const float4 value = s_seg[i][0], slope = s_seg[i][1];
+        const float h = u - s_knots[i];
+        float c0 = fmaf(slope.x, h, value.x);
+        float c1 = fmaf(slope.y, h, value.y);
+        float c2 = fmaf(slope.z, h, value.z);
+        float c3 = fmaf(slope.w, h, value.w);
         if (val > kNanThresh) {  // the sample touches a NaN voxel
           if (P.nan_mode == 1) {  // yellow
             c0 = 1.f;
@@ -189,7 +309,9 @@ __global__ void __launch_bounds__(256) raymarch_dvr_kernel(
             c3 = 0.f;
           }
         }
-        const float w = (1.f - acc_a) * (1.f - expf(-c3 * dt * atten));
+        const float tau = c3 * dt * atten;
+        const float a_s = PROBE == kNoExp ? fminf(tau, 1.f) : 1.f - expf(-tau);
+        const float w = (1.f - acc_a) * a_s;
         acc_r += w * c0;
         acc_g += w * c1;
         acc_b += w * c2;
@@ -205,6 +327,9 @@ __global__ void __launch_bounds__(256) raymarch_dvr_kernel(
   rgb[3 * p + 1] = acc_g;
   rgb[3 * p + 2] = acc_b;
   alpha[p] = acc_a;
+  if (samples != nullptr) {
+    atomicAdd(samples, static_cast<unsigned long long>(taken));
+  }
 }
 
 struct IsoParams {
@@ -317,28 +442,32 @@ __global__ void __launch_bounds__(256) raymarch_iso_kernel(
   out[4 * n + p] = o4;
 }
 
-}  // namespace
-
-extern "C" int correrender_raymarch_dvr(
-    const void* vol, int planes, int sub_extent, int lane_extent,
-    const void* fields, int width, int height, const void* params,
-    const void* tfp, int k, int q, int nan_mode, int restriction,
-    void* rgb, void* alpha, int device, void* stream) {
+// B5's launch: the segment table in the parameter block, the warp tile
+// TW and probe PROBE; `samples` (nullable) receives the samples taken.
+// The search takes ceil(log2 K) steps (at least 1), a template argument.
+template <int TW, int PROBE>
+int launch_dvr(const void* vol, int planes, int sub_extent, int lane_extent,
+               const void* fields, int width, int height, const void* params,
+               const void* tfp, int k, int q, int nan_mode, int restriction,
+               void* rgb, void* alpha, void* samples, int device,
+               void* stream) {
   if (k < 1 || k > kMaxKnots || q < 1 || planes < 1 || sub_extent < 1 ||
-      lane_extent < 1) {
-    return cudaErrorInvalidValue;
+      lane_extent < 1 ||
+      static_cast<long long>(sub_extent) * lane_extent > (1LL << 30)) {
+    return cudaErrorInvalidValue;  // two planes' offsets fit 32 bits
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   RayParams P;
   const float* hp = static_cast<const float*>(params);
   for (int i = 0; i < 18; ++i) P.p[i] = hp[i];
-  // tfp is (5, 1 + k): row 0 = [pad, knots...], rows 1-4 = [base, slopes...]
+  // tfp is (9, k): knots, then the values of the 4 channels at each
+  // knot, then the slopes to the next knot (raymarch_kernel.py::
+  // tf_segments).
   const float* ht = static_cast<const float*>(tfp);
-  for (int i = 0; i < k; ++i) P.knots[i] = ht[1 + i];
-  for (int ch = 0; ch < 4; ++ch) {
-    P.base[ch] = ht[(1 + ch) * (1 + k)];
-    for (int i = 0; i < k; ++i) P.slope[ch][i] = ht[(1 + ch) * (1 + k) + 1 + i];
+  for (int i = 0; i < kKnotSlots; ++i) P.knots[i] = i < k ? ht[i] : INFINITY;
+  for (int i = 0; i < kMaxKnots; ++i) {
+    for (int c = 0; c < 8; ++c) P.seg[i][c] = i < k ? ht[(1 + c) * k + i] : 0.f;
   }
   P.k = k;
   P.q = q;
@@ -349,12 +478,70 @@ extern "C" int correrender_raymarch_dvr(
   P.lane = lane_extent;
   P.width = width;
   P.height = height;
-  const dim3 block(32, 8);
   const dim3 grid((width + 31) / 32, (height + 7) / 8);
-  raymarch_dvr_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vol), static_cast<const float*>(fields), P,
-      static_cast<float*>(rgb), static_cast<float*>(alpha));
-  return cudaGetLastError();
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid, kBlockThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(vol), static_cast<const float*>(fields), P,
+        static_cast<float*>(rgb), static_cast<float*>(alpha),
+        static_cast<unsigned long long*>(samples));
+    return cudaGetLastError();
+  };
+  if (k <= 2) return launch(raymarch_dvr_kernel<TW, PROBE, 1>);
+  if (k <= 4) return launch(raymarch_dvr_kernel<TW, PROBE, 2>);
+  if constexpr (PROBE == kShipped && TW == kDvrTileWidth) {
+    if (k <= 8) return launch(raymarch_dvr_kernel<TW, PROBE, 3>);
+    if (k <= 16) return launch(raymarch_dvr_kernel<TW, PROBE, 4>);
+    return launch(raymarch_dvr_kernel<TW, PROBE, 5>);
+  }
+  return cudaErrorInvalidValue;  // the variants take up to 4 knots
+}
+
+}  // namespace
+
+extern "C" int correrender_raymarch_dvr(
+    const void* vol, int planes, int sub_extent, int lane_extent,
+    const void* fields, int width, int height, const void* params,
+    const void* tfp, int k, int q, int nan_mode, int restriction,
+    void* rgb, void* alpha, int device, void* stream) {
+  return launch_dvr<kDvrTileWidth, kShipped>(
+      vol, planes, sub_extent, lane_extent, fields, width, height, params,
+      tfp, k, q, nan_mode, restriction, rgb, alpha, nullptr, device, stream);
+}
+
+// Variants of B5 for ops/cuda/ablate_raymarch.py, not on any entry
+// point's path: the warp tile `tile_width` (8: 8 × 4 pixels, 32: 32 × 1)
+// with `probe` 0 (the shipped march); at the shipped tile, probes 1 (no
+// TF search: the segment of u on evenly spaced knots, right for config
+// 1's knots 0, 0.5 and 1), 2 (one tap instead of the eight-tap
+// trilinear sample) and 3 (no expf: alpha = min(τ, 1)); the
+// variants take transfer functions of up to 4 knots (config 1's has 3).
+// The samples taken are added to *samples when it is not null.
+extern "C" int correrender_raymarch_dvr_probe(
+    const void* vol, int planes, int sub_extent, int lane_extent,
+    const void* fields, int width, int height, const void* params,
+    const void* tfp, int k, int q, int nan_mode, int restriction,
+    void* rgb, void* alpha, int tile_width, int probe, void* samples,
+    int device, void* stream) {
+#define CORRERENDER_DVR_ARGS                                                \
+  vol, planes, sub_extent, lane_extent, fields, width, height, params, tfp, \
+      k, q, nan_mode, restriction, rgb, alpha, samples, device, stream
+  constexpr int kOther = kDvrTileWidth == 8 ? 32 : 8;
+  if (probe == kShipped && tile_width == kOther) {
+    return launch_dvr<kOther, kShipped>(CORRERENDER_DVR_ARGS);
+  }
+  if (tile_width != kDvrTileWidth) return cudaErrorInvalidValue;
+  switch (probe) {
+    case kShipped:
+      return launch_dvr<kDvrTileWidth, kShipped>(CORRERENDER_DVR_ARGS);
+    case kNoTfSearch:
+      return launch_dvr<kDvrTileWidth, kNoTfSearch>(CORRERENDER_DVR_ARGS);
+    case kOneTap:
+      return launch_dvr<kDvrTileWidth, kOneTap>(CORRERENDER_DVR_ARGS);
+    case kNoExp:
+      return launch_dvr<kDvrTileWidth, kNoExp>(CORRERENDER_DVR_ARGS);
+  }
+#undef CORRERENDER_DVR_ARGS
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int correrender_raymarch_iso(

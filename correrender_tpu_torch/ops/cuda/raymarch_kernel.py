@@ -27,6 +27,11 @@ Departures from the TPU kernel, by design:
   background.
 * A transfer function without control points raises
   :class:`RaymarchUnsupported` instead of marching a gray ramp.
+* B5 evaluates the transfer function in segment form (:func:`tf_segments`:
+  a binary search for the segment, then 4 FMAs), where the TPU kernel
+  and B5's plain version sum its hinges (:func:`tf_hinges`); the two are
+  the same piecewise-linear function and differ by rounding only
+  (``tests/test_torch_port_exact.py::test_tf_segments_match_the_hinge_sum``).
 * B6 takes ``refine_steps`` but neither ``ns`` (subtiles per grid step)
   nor ``interpret``: both belong to the TPU kernel.
 """
@@ -84,21 +89,13 @@ def prepare_raymarch_volume(volume: torch.Tensor, axis_world: int,
     return torch.where(torch.isnan(vol), _NAN_SENTINEL, vol).contiguous()
 
 
-def tf_hinges(tf):
-    """Hinge decomposition of a piecewise-linear transfer function.
-
-    ``value_ch(u) = base_ch + Σᵢ slope_ch,i · relu(u − knot_i)`` over the
-    merged knots of the colour and opacity control points: exactly the
-    control-point function the reference's LUT samples. Returns
-    ``(knots (K,), slopes (4, K), base (4,))`` float32 numpy. The JAX
-    package pads K to a multiple of 4 with inert knots at 2.0; the port
-    does not pad.
-
-    Raises :class:`RaymarchUnsupported` for more than 24 knots (the
-    kernel's parameter block) and for a transfer function without control
-    points (the JAX package
-    marches a gray ramp there instead).
-    """
+def _tf_knots(tf):
+    """The merged knots of a transfer function's colour and opacity
+    control points, the four channels' values there and the slopes of
+    the segments between them, in float64: ``(knots (K,), vals (4, K),
+    seg (4, K))``, ``seg[:, K − 1] = 0`` (flat after the last knot, the
+    LUT's clamp). Raises :class:`RaymarchUnsupported` as
+    :func:`tf_hinges` documents."""
     color, opacity = tf.color_points, tf.opacity_points
     if not color or not opacity:
         raise RaymarchUnsupported(
@@ -123,16 +120,47 @@ def tf_hinges(tf):
     ks = np.asarray(knots, np.float64)
     vals = np.stack([np.concatenate([interp(color, u), interp(opacity, u)])
                      for u in ks], axis=1)  # (4, K)
-    # Segment slopes between consecutive knots (flat before the first and
-    # after the last, the LUT's clamp); hinge i = the slope change at i.
     seg = np.zeros((4, len(knots)), np.float64)
     for i in range(len(knots) - 1):
         span = ks[i + 1] - ks[i]
         seg[:, i] = 0.0 if span <= 0 else (vals[:, i + 1] - vals[:, i]) / span
+    return ks, vals, seg
+
+
+def tf_hinges(tf):
+    """Hinge decomposition of a piecewise-linear transfer function.
+
+    ``value_ch(u) = base_ch + Σᵢ slope_ch,i · relu(u − knot_i)`` over the
+    merged knots of the colour and opacity control points: exactly the
+    control-point function the reference's LUT samples. Returns
+    ``(knots (K,), slopes (4, K), base (4,))`` float32 numpy. The JAX
+    package pads K to a multiple of 4 with inert knots at 2.0; the port
+    does not pad. B5's plain version sums these hinges.
+
+    Raises :class:`RaymarchUnsupported` for more than 24 knots (the
+    kernel's parameter block) and for a transfer function without control
+    points (the JAX package
+    marches a gray ramp there instead).
+    """
+    ks, vals, seg = _tf_knots(tf)
+    # Hinge i = the slope change at knot i (flat before the first).
     hinge = seg.copy()
     hinge[:, 1:] = seg[:, 1:] - seg[:, :-1]
     return (ks.astype(np.float32), hinge.astype(np.float32),
             vals[:, 0].astype(np.float32))
+
+
+def tf_segments(tf):
+    """Segment form of the same transfer function, as kernel B5 evaluates
+    it: ``value_ch(u) = values[ch, i] + slopes[ch, i] · (u − knots[i])``
+    for the last knot ``i`` with ``knots[i] ≤ u``. Returns ``(knots (K,),
+    values (4, K), slopes (4, K))`` float32 numpy, each rounded once from
+    the float64 values :func:`tf_hinges` builds; the slope after the last
+    knot is 0. The function is the hinge sum's; the two differ only by
+    rounding. Raises as :func:`tf_hinges`."""
+    ks, vals, seg = _tf_knots(tf)
+    return (ks.astype(np.float32), vals.astype(np.float32),
+            seg.astype(np.float32))
 
 
 def _lane_axis(e0, ex, ey, width, height, a, in_plane, flip, voxel,
@@ -467,8 +495,11 @@ def dvr_raymarch(vol_prepared, camera, tf, image_size, plan,
         raise ValueError(f"no raymarch kernel for device {dev}")
     _build.require_cuda_tensor(vol_prepared, "vol_prepared", torch.float32,
                                dev)
-    fields, params, tfp, metric = _inputs(*args)
+    fields, params, _, metric = _inputs(*args)
     fields = fields.contiguous()
+    knots, values, slopes = tf_segments(tf)
+    table = np.ascontiguousarray(
+        np.concatenate([knots[None], values, slopes]))  # (9, K)
     width, height = image_size
     rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     alpha = torch.empty((height, width), dtype=torch.float32, device=dev)
@@ -479,8 +510,8 @@ def dvr_raymarch(vol_prepared, camera, tf, image_size, plan,
     _build.LAUNCHES["raymarch_dvr"] += 1
     err = lib.correrender_raymarch_dvr(
         vol_prepared.data_ptr(), planes, sub, lane, fields.data_ptr(),
-        width, height, params.ctypes.data, tfp.ctypes.data,
-        tfp.shape[1] - 1, plan["q"], _NAN_MODES[nan_mode], _METRICS[metric],
+        width, height, params.ctypes.data, table.ctypes.data,
+        len(knots), plan["q"], _NAN_MODES[nan_mode], _METRICS[metric],
         rgb.data_ptr(), alpha.data_ptr(), dev.index, _build.stream_of(alpha),
     )
     _build.check(err, "raymarch_dvr")

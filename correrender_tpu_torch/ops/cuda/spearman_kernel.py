@@ -3,9 +3,13 @@
 Counterpart of ``correrender_tpu/ops/pallas/spearman_kernel.py``. The
 kernel ranks each voxel's members by sorting them (the TPU kernel counts
 ranks pairwise), takes each member's doubled tie-averaged rank 2r (an
-integer) and the moments Σ2r, Σ(2r)² and Σ(2r)(2r_x) in int64 against
-the doubled reference ranks. Its plain version is :func:`ops.spearman`,
-which sums the same integers; both assemble rho with
+integer) and the moments Σ(2r)² and Σ(2r)(2r_x) in integers against the
+doubled reference ranks, and writes Σ2r = n(n + 1), which holds for any
+series. Up to 1024 members a lane sorts E = pow2(n) / lanes keys in
+registers and the voxel's lanes merge their runs through shared memory:
+8 lanes a voxel up to n = 128, 32 lanes above; beyond that, one warp a
+voxel sorts in shared memory. Its plain version is :func:`ops.spearman`, which sums the
+same integers; both assemble rho with
 :func:`ops.spearman.rho_from_moments`, so they agree to the last float32
 bit. NaN members rank as in the XLA path ``ops.spearman``: after every
 number, in index order.
@@ -63,6 +67,8 @@ def spearman_cuda(stack: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
             series.data_ptr(), xr.data_ptr(), sums.data_ptr(), v, n,
             stack.device.index, _build.stream_of(stack))
         _build.check(err, "spearman")
-    s_y, s_yy, s_xy = sums.unbind(-1)
-    return rho_from_moments(n, xrank2.sum(), (xrank2 * xrank2).sum(), s_y,
-                            s_yy, s_xy).reshape(lead)
+    # Column 0 holds Σ2r = n(n + 1) for every voxel; the identity spares
+    # the assembly a pass over it.
+    return rho_from_moments(n, xrank2.sum(), (xrank2 * xrank2).sum(),
+                            n * (n + 1), sums[:, 1],
+                            sums[:, 2]).reshape(lead)

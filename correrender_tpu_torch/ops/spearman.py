@@ -29,10 +29,11 @@ def doubled_ranks(v: torch.Tensor, is_ranked: bool = False) -> torch.Tensor:
 def rho_from_moments(n: int, s_x, s_xx, s_y, s_yy, s_xy) -> torch.Tensor:
     """float32 rho from the int64 sums Σa, Σa², Σb, Σb², Σab of two
     doubled-rank series: the numerator and both variances exact in int64,
-    the quotient in float64."""
-    num = n * s_xy - s_x * s_y
+    the quotient in float64. ``s_x``, ``s_xx`` and ``s_y`` may be Python
+    ints or 0-d tensors (a per-voxel tensor of ``s_y`` broadcasts)."""
+    num = torch.add(-(s_x * s_y), s_xy, alpha=n)
     var_x = n * s_xx - s_x * s_x
-    var_y = n * s_yy - s_y * s_y
+    var_y = torch.add(-(s_y * s_y), s_yy, alpha=n)
     rho = num.to(torch.float64) / torch.sqrt(
         var_x.to(torch.float64) * var_y.to(torch.float64))
     return rho.to(torch.float32)

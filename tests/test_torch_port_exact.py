@@ -230,6 +230,83 @@ def test_tf_hinges_match_jax(case):
     assert (want_knots[k:] == 2.0).all() and not want_slopes[:, k:].any()
 
 
+def random_tf(seed):
+    """Control points at random positions (some outside [0, 1], some
+    shared by colour and opacity) with random values."""
+    rng = np.random.default_rng(seed)
+    xs = np.round(rng.uniform(-0.2, 1.2, size=7), 3)
+    color = [(float(x), tuple(float(c) for c in rng.random(3)))
+             for x in np.sort(xs[:4])]
+    opacity = [(float(x), float(rng.random()))
+               for x in np.sort(np.concatenate([xs[2:3], xs[4:]]))]
+    return TransferFunction.from_control_points(color, opacity)
+
+
+SEGMENT_CASES = {
+    **{name: (lambda f=f: port_tf(f())) for name, f in TF_CASES.items()},
+    **{f"colormap {name}": (lambda name=name: TransferFunction.from_colormap(
+        name, opacity_points=((0.0, 0.1), (0.3, 0.0), (0.8, 0.6),
+                              (1.0, 0.9))))
+       for name in ("gray", "coolwarm", "viridis", "heatmap")},
+    **{f"random {seed}": (lambda seed=seed: random_tf(seed))
+       for seed in range(4)},
+}
+
+
+def segment_eval(knots, values, slopes, u):
+    """B5's evaluation: the kernel's binary search over the knots padded
+    to 32 slots with +inf, then one FMA a channel."""
+    table = np.full(32, np.inf, np.float32)
+    table[:len(knots)] = knots
+    half = 1
+    while half < len(knots):
+        half *= 2
+    out = []
+    for uu in u:
+        i, step = 0, half // 2
+        while step > 0:
+            if table[i + step] <= uu:
+                i += step
+            step //= 2
+        h = np.float32(uu - knots[i])
+        out.append((slopes[:, i].astype(np.float64) * h
+                    + values[:, i]).astype(np.float32))
+    return np.stack(out, axis=1)
+
+
+def hinge_sum(knots, slopes, base, u):
+    """The hinge sum of :func:`tf_hinges`'s float32 arrays, evaluated in
+    float64 (B5's plain version runs it in float32, whose own rounding
+    reaches 3e-6 on the random cases' steep segments)."""
+    h = np.maximum(u[None, :].astype(np.float64)
+                   - knots[:, None].astype(np.float64), 0.0)
+    return base[:, None].astype(np.float64) + slopes.astype(np.float64) @ h
+
+
+@pytest.mark.parametrize("case", list(SEGMENT_CASES))
+def test_tf_segments_match_the_hinge_sum(case):
+    tf = SEGMENT_CASES[case]()
+    knots, values, slopes = trk.tf_segments(tf)
+    h_knots, h_slopes, base = trk.tf_hinges(tf)
+    np.testing.assert_array_equal(knots, h_knots)
+    assert values.shape == slopes.shape == (4, len(knots))
+    assert not slopes[:, -1].any()  # flat after the last knot
+    inside = np.clip(knots, 0.0, 1.0)
+    mids = np.clip((knots[:-1] + knots[1:]) / 2, 0.0, 1.0)
+    u = np.concatenate([inside, mids, np.linspace(0.0, 1.0, 101),
+                        np.nextafter(inside, np.float32(2.0)),
+                        np.nextafter(inside, np.float32(-1.0))])
+    u = np.clip(u.astype(np.float32), 0.0, 1.0)
+    got = segment_eval(knots, values, slopes, u)
+    want = hinge_sum(h_knots, h_slopes, base, u)
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    # The knot values are the function's (the LUT's control points).
+    at_knots = (knots >= 0.0) & (knots <= 1.0)
+    np.testing.assert_allclose(
+        segment_eval(knots, values, slopes, knots[at_knots]),
+        values[:, at_knots], atol=0, rtol=0)
+
+
 def test_tf_hinges_refuse_a_lut_only_tf():
     with pytest.raises(trk.RaymarchUnsupported, match="control points"):
         trk.tf_hinges(TransferFunction(lut=torch.zeros((8, 4))))
