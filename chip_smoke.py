@@ -10,9 +10,18 @@ Phases, each asserting; any failure exits non-zero:
 2. Build: compiles the hand-written sm_90a kernels from
    ``correrender_tpu_torch/ops/cuda/csrc`` (one nvcc per source, all at
    once, into build/kernels/).
-3. Kernels against their plain PyTorch versions on the card: K1 Pearson,
-   K2 classify (NaN, degenerate domain, every slice orientation), K3
-   composite (with and without kstop), B3 classify_volume (NaN,
+3. Kernels against their plain PyTorch versions on the card: K1 Pearson
+   at n = 1-5, 37, 100, 128, 129, 1000, 1025, 2048, 2049 and 4096 on
+   2053 voxels (its lane and tiling boundaries, a ragged last tile, a
+   zero-variance row), on 12- and 20-byte stacks, an offset view (the
+   direct regime) and 250³ × 100; K2 classify (NaN, degenerate domain,
+   every slice orientation); K3 composite on the tests' setup with and
+   without kstop, hi and wi that no tile divides, S = 1, Yv = 1, Xv = 1,
+   inert and missed slices and saturated rays, with its probe variants
+   (``ablate_fast_path.py``): the unpacked, 1- and 4-pixel and exit
+   variants equal to the kernel, and its difference from the inline-tap
+   arithmetic of the first kernel (and of the tables with q fused as that
+   kernel fused it, 0.0 expected) printed; B3 classify_volume (NaN,
    degenerate domain), B5 exact marcher at 64³ and 512×288 (six
    orientations, NaN ignore and yellow, restriction in both metrics, a
    depth-limit plane, a rotated model matrix, transfer functions of 7
@@ -33,7 +42,8 @@ Phases, each asserting; any failure exits non-zero:
 5. Config 1 at the headline grid (250³ voxels × 100 members drawn on the
    card, 1920×1080, intermediate scale 0.75): the main path once with
    counted launches; each kernel against its plain version on the inputs
-   the main path gave it; the median of 5 frames' stage times (CUDA
+   the main path gave it (K3 also against the inline-tap arithmetic);
+   the median of 5 frames' stage times (CUDA
    events at the stage boundaries of ``render_correlation_fast``, through
    its ``on_stage`` hook), each beside the plain version's time on the
    same inputs; the peak device memory.
@@ -199,6 +209,14 @@ HEADLINE_IMAGE = (1920, 1080)
 EXACT_KERNEL_SIDE, EXACT_KERNEL_IMAGE = 64, (512, 288)
 CONFIG1_GRID, CONFIG1_IMAGE = (128, 128, 32), (1280, 720)  # (xs, ys, zs)
 MEASURE_KERNEL_N = (37, 250, 1000)
+# K1 also at these n (its lane and tiling boundaries: 4 lanes up to 128
+# members, 32 above; tiles up to 2048, one warp a voxel above).
+K1_EXTRA_N = (1, 2, 3, 4, 5, 37, 100, 128, 129, 1000, 1025, 2048, 2049,
+              4096)
+# K3's probe variants (csrc/shearwarp.cu) that must give the shipped
+# kernel's image to the bit: unpacked rounding, 1 and 4 pixels a
+# thread, the exact exit.
+K3_EQUAL_TO_SHIPPED = (3, 4, 5, 6)
 KENDALL_EXTRA_N = (1, 2, 33, 4096)  # B8 also at these n
 # B7 also at its lane and register boundaries (8 lanes up to 128 members,
 # 32 up to 1024, the shared path above).
@@ -298,8 +316,9 @@ def phase_build() -> None:
     path, log = _build.build()
     _build.library()
     print(f"[build] {path.name} in {time.perf_counter() - t0:.3f} s")
-    entries = ("pearson_kernel", "classify_cf_kernel",
-               "classify_volume_kernel", "composite_kernel",
+    entries = ("pearson_tiled_kernel", "pearson_direct_kernel",
+               "classify_cf_kernel", "classify_volume_kernel",
+               "composite_taps_kernel", "composite_kernel",
                "raymarch_dvr_kernel", "raymarch_iso_kernel",
                "spearman_regs_kernel", "spearman_shared_kernel",
                "kendall_kernel", "ksg_kernel", "ksg_banded_kernel",
@@ -309,7 +328,7 @@ def phase_build() -> None:
         if "entry function" in line:  # ptxas names the kernel first
             entry = next((e for e in entries if e in line), "?")
             # A template instance: its arguments, e.g. ILi8ELi16ELi0E.
-            args = re.search(r"kernel(I(?:Li-?\d+E)+)", line)
+            args = re.search(r"kernel(I(?:L[ib]-?\d+E)+)", line)
             entry += f" {args.group(1)}" if args else ""
         elif "registers" in line or "spill" in line:
             print(f"[build] ptxas {entry}: {line.strip()}")
@@ -336,20 +355,58 @@ def phase_kernels(dev, errs: dict) -> None:
             rng.normal(size=(37, 73)).astype(np.float32), device=dev),
          torch.as_tensor(rng.normal(size=73).astype(np.float32), device=dev)),
     ]
+    # K1's regimes: n on both sides of the lane width (4 lanes up to 128
+    # members, 32 above) and of the tiled limit (2048), V = 2053 (no
+    # multiple of any tile), a zero-variance row in each; a stack of 12
+    # bytes (no bulk copy), one of 20 (a bulk copy and a tail), and an
+    # offset view (not 16-byte aligned: the direct regime).
+    for n in K1_EXTRA_N:
+        y = torch.randn((2053, n), generator=gen, device=dev)
+        y[7] = 0.0
+        cases.append((f"{2053}x{n}", y, torch.randn(n, generator=gen,
+                                                    device=dev)))
+    for v, n in ((1, 3), (5, 1)):
+        cases.append((f"{v}x{n}", torch.randn((v, n), generator=gen,
+                                              device=dev),
+                      torch.randn(n, generator=gen, device=dev)))
+    base = torch.randn(2053 * 100 + 1, generator=gen, device=dev)
+    view = base[1:].view(2053, 100)
+    view[7] = 0.0
+    assert view.data_ptr() % 16 == 4
+    cases.append(("2053x100 offset view", view, view[11].clone()))
     for label, st, ref in cases:
         got = pearson_cuda(st, ref)
         torch.cuda.synchronize()
         want = pearson_plain(st.reshape(-1, st.shape[-1]), ref).reshape(
             st.shape[:-1])
-        f64 = pearson(ref, st, dtype=torch.float64)
         err = max_abs(got, want)
+        f64 = ""
+        if st.shape[-1] >= 4:  # below, |r| is 1 or 0/0 up to cancellation
+            r64 = pearson(ref, st, dtype=torch.float64)
+            f64 = (f", max|kernel-f64| {max_abs(got, r64):.3e}, "
+                   f"max|plain-f64| {max_abs(want, r64):.3e}")
         print(f"[K1 pearson] {label}: max|kernel-plain| {err:.3e} "
-              f"(bar {ATOL_PEARSON}), max|kernel-f64| "
-              f"{max_abs(got, f64):.3e}, max|plain-f64| "
-              f"{max_abs(want, f64):.3e}")
+              f"(bar {ATOL_PEARSON}){f64}")
         assert err <= ATOL_PEARSON, label
+        if st.shape[0] == 2053 and st.shape[1] > 1:
+            assert bool(torch.isnan(got[7])), label  # the zero-variance row
         errs["pearson"] = max(errs["pearson"], err)
     assert bool(torch.isnan(pearson_cuda(stack, cases[0][2])[3, 4, 5]))
+    del cases, stack, base, view
+    # K1 at the headline size on a stack of its own.
+    stack = synth_box_stack(HEADLINE_SIDE, HEADLINE_SIDE, HEADLINE_SIDE,
+                            HEADLINE_MEMBERS, gen, dev)
+    side = HEADLINE_SIDE
+    ref = stack[side // 6, side // 3, 2 * side // 3].clone()
+    got = pearson_cuda(stack, ref)
+    torch.cuda.synchronize()
+    err = max_abs(got, pearson_plain(stack.reshape(-1, HEADLINE_MEMBERS),
+                                     ref).reshape(got.shape))
+    print(f"[K1 pearson] {HEADLINE_SIDE}^3x{HEADLINE_MEMBERS}: "
+          f"max|kernel-plain| {err:.3e} (bar {ATOL_PEARSON})")
+    assert err <= ATOL_PEARSON
+    errs["pearson"] = max(errs["pearson"], err)
+    del stack, got
 
     # K2: NaN, out-of-domain values, a degenerate domain, all orientations.
     field = 1.5 * torch.randn((20, 24, 28), generator=gen, device=dev)
@@ -369,32 +426,80 @@ def phase_kernels(dev, errs: dict) -> None:
           f"max|kernel-plain| {errs['classify_to_cf']:.3e} "
           f"(bar {ATOL_CLASSIFY})")
 
-    # K3: the tests/test_pallas.py:98-118 setup, with and without kstop.
-    s, yv, xv, hi, wi = 20, 24, 40, 48, 64
+    # K3: the tests/test_pallas.py:98-118 setup, with and without kstop,
+    # then its boundaries: hi and wi that no tile divides, S = 1, Yv = 1
+    # and Xv = 1 (spacing 1), inert slices (g ≤ 1e-6), a slice that the
+    # footprint misses, and saturated rays (α reaches exactly 1).
+    g20 = np.linspace(1.0, 1.8, 20)
+    inert = g20.copy()
+    inert[[0, 3, 4, 11]] = (0.0, 1e-6, -0.5, 1e-7)
+    missed = g20.copy()
+    missed[[5, 6]] = (40.0, -40.0)
+    k3_cases = [
+        ("20x24x40 -> 48x64", dict()),
+        ("20x24x40 -> 48x64, kstop", dict(kstop=True)),
+        ("ragged 37x45, kstop", dict(hi=37, wi=45, kstop=True)),
+        ("S = 1", dict(s=1, g=np.ones(1))),
+        ("Yv = 1", dict(yv=1)),
+        ("Xv = 1, kstop", dict(xv=1, kstop=True)),
+        ("inert slices", dict(g=inert)),
+        ("missed slices", dict(g=missed)),
+        ("saturated", dict(attenuation=1e4, opacity=3.0)),
+        ("saturated, kstop, ragged 45x70",
+         dict(attenuation=1e4, opacity=3.0, kstop=True, hi=45, wi=70)),
+    ]
+    for label, kw in k3_cases:
+        cf, args = composite_case(rng, dev, **kw)
+        rgb_k, a_k = shearwarp_composite(cf, **args)
+        torch.cuda.synchronize()
+        rgb_p, a_p = shearwarp_composite_plain(cf, **args)
+        err = max(max_abs(rgb_k, rgb_p), max_abs(a_k, a_p))
+        assert err <= ATOL_COMPOSITE, (label, err)
+        errs["shearwarp_composite"] = max(errs["shearwarp_composite"], err)
+        shipped = torch.cat([rgb_k.reshape(-1), a_k.reshape(-1)])
+        probes = {p: composite_probe(cf, args, p) for p in range(1, 7)}
+        for p in K3_EQUAL_TO_SHIPPED:
+            assert torch.equal(probes[p], shipped), (label, p)
+        inline = float((shipped - probes[1]).abs().max())
+        fused = float((probes[2] - probes[1]).abs().max())
+        print(f"[K3 composite] {label}: max|kernel-plain| {err:.3e} (bar "
+              f"{ATOL_COMPOSITE}); max|kernel - inline taps| {inline:.3e}, "
+              f"max|q fused - inline taps| {fused:.3e}; alpha = 1 at "
+              f"{100 * float((a_k == 1.0).float().mean()):.1f}% of pixels")
+        assert inline <= ATOL_COMPOSITE and fused <= ATOL_COMPOSITE, label
 
+
+def composite_case(rng, dev, s=20, yv=24, xv=40, hi=48, wi=64, g=None,
+                   kstop=False, attenuation=80.0, opacity=0.3):
+    """K3's inputs in the tests/test_pallas.py:98-118 form: ``(cf,
+    keyword arguments of shearwarp_composite)``."""
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    cf = t(rng.uniform(size=(s, yv, xv, 4)) * 0.3).to(torch.bfloat16)
+    cf = t(rng.uniform(size=(s, yv, xv, 4)) * 0.3)
+    cf[..., 3] *= opacity / 0.3
     args = dict(
-        g=t(np.linspace(1.0, 1.8, s)),
+        g=t(np.linspace(1.0, 1.8, s) if g is None else g),
         coords_y=t(np.linspace(-0.2, 0.2, yv)),
         coords_x=t(np.linspace(-0.25, 0.25, xv)),
         grid_v=t(np.linspace(-0.22, 0.22, hi)),
         grid_u=t(np.linspace(-0.27, 0.27, wi)),
         eye_uv=(0.05, -0.03),
         len_factor=t(1.0 + 0.2 * rng.uniform(size=(hi, wi))),
-        slab_thickness=0.02, attenuation=80.0,
+        slab_thickness=0.02, attenuation=attenuation,
+        kstop=t(rng.uniform(0.0, s, size=(hi, wi))) if kstop else None,
     )
-    for kstop in (None, t(rng.uniform(0.0, s, size=(hi, wi)))):
-        rgb_k, a_k = shearwarp_composite(cf, **args, kstop=kstop)
-        torch.cuda.synchronize()
-        rgb_p, a_p = shearwarp_composite_plain(cf, **args, kstop=kstop)
-        err = max(max_abs(rgb_k, rgb_p), max_abs(a_k, a_p))
-        print(f"[K3 composite] kstop={'yes' if kstop is not None else 'no'}: "
-              f"max|kernel-plain| {err:.3e} (bar {ATOL_COMPOSITE})")
-        assert err <= ATOL_COMPOSITE
-        errs["shearwarp_composite"] = max(errs["shearwarp_composite"], err)
+    return cf.to(torch.bfloat16), args
+
+
+def composite_probe(cf, args, which: int) -> torch.Tensor:
+    """One of K3's probe variants on the wrapper's arguments: rgb and
+    alpha, flattened and joined."""
+    from correrender_tpu_torch.ops.cuda import ablate_fast_path
+
+    rgb, alpha = ablate_fast_path.composite_probe(cf, args, which)
+    torch.cuda.synchronize()
+    return torch.cat([rgb.reshape(-1), alpha.reshape(-1)])
 
 
 def smooth_volume(shape, gen, dev) -> torch.Tensor:
@@ -640,11 +745,19 @@ def phase_headline(dev, card: str, errs: dict, stack: torch.Tensor):
     rgb_p, alpha_p = shearwarp_composite_plain(cf, **comp_args,
                                                attenuation=100.0)
     err_comp = max(max_abs(rgb, rgb_p), max_abs(alpha, alpha_p))
+    probe_args = dict(comp_args, attenuation=100.0)
+    shipped = torch.cat([rgb.reshape(-1), alpha.reshape(-1)])
+    inline = composite_probe(cf, probe_args, 1)
+    fused = composite_probe(cf, probe_args, 2)
     print(f"[headline] composite max|kernel-plain| {err_comp:.3e} "
-          f"(bar {ATOL_COMPOSITE})")
+          f"(bar {ATOL_COMPOSITE}); max|kernel - inline taps| "
+          f"{float((shipped - inline).abs().max()):.3e}, max|q fused - inline "
+          f"taps| {float((fused - inline).abs().max()):.3e}; alpha = 1 "
+          f"at {100 * float((alpha == 1.0).float().mean()):.2f}% of the "
+          f"intermediate pixels")
     assert err_comp <= ATOL_COMPOSITE
     errs["shearwarp_composite"] = max(errs["shearwarp_composite"], err_comp)
-    del rgb_p, alpha_p
+    del rgb_p, alpha_p, shipped, inline, fused
 
     # Stage times of the main path (CUDA events at the stage boundaries),
     # median of 5 frames, and each plain version on the same inputs.
@@ -1697,23 +1810,25 @@ def main() -> None:
     stack = synth_box_stack(side, side, side, HEADLINE_MEMBERS, gen, dev)
     stats, frame = phase_headline(dev, card, errs, stack)
     phase_profile(f"profile fast {card}", frame, {
-        "K1 pearson_kernel": "pearson_kernel",
+        "K1 pearson_tiled_kernel": "pearson_tiled_kernel",
         "K2 classify_cf_kernel": "classify_cf_kernel",
+        "K3 composite_taps_kernel": "composite_taps_kernel",
         "K3 composite_kernel": "composite_kernel",
         "warp bmm (cuBLAS gemm)": "gemm"},
-        ("K1 pearson_kernel", "K3 composite_kernel"))
+        ("K1 pearson_tiled_kernel", "K3 composite_taps_kernel",
+         "K3 composite_kernel"))
     exact_stats, exact_frame = phase_exact(dev, card, errs, stack)
     stats.update(exact_stats)
     phase_profile(f"profile exact {card}", exact_frame, {
         "B5 raymarch_dvr_kernel": "raymarch_dvr_kernel",
-        "K1 pearson_kernel": "pearson_kernel"},
-        ("B5 raymarch_dvr_kernel", "K1 pearson_kernel"))
+        "K1 pearson_tiled_kernel": "pearson_tiled_kernel"},
+        ("B5 raymarch_dvr_kernel", "K1 pearson_tiled_kernel"))
     stats.update(phase_restricted(dev, card, errs, stack))
     iso_stats, iso_frame = phase_iso_frame(dev, card, errs, stack)
     stats.update(iso_stats)
     phase_profile(f"profile iso {card}", iso_frame, {
         "B6 raymarch_iso_kernel": "raymarch_iso_kernel",
-        "K1 pearson_kernel": "pearson_kernel"},
+        "K1 pearson_tiled_kernel": "pearson_tiled_kernel"},
         ("B6 raymarch_iso_kernel",))
     del frame, exact_frame, iso_frame
     phase_measures_grid(dev, card, errs, stack, stats)

@@ -42,17 +42,25 @@ _F = ctypes.c_float
 
 # C signatures of the entries in csrc/ (device index and stream last).
 _SIGNATURES = {
-    # series, ref, stats, out, v, n
-    "correrender_pearson": [_P, _P, _P, _P, _L, _I, _I, _P],
+    # series, ref, out, v, n
+    "correrender_pearson": [_P, _P, _P, _L, _I, _I, _P],
+    # the same, then lanes, stages, tile_bytes (ablate_fast_path.py only)
+    "correrender_pearson_probe": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     # field, offset, st_s, st_v, st_u, S, Yv, Xv, lutp, R, lo, hi, out
     "correrender_classify_cf": [
         _P, _L, _L, _L, _L, _I, _I, _I, _P, _I, _F, _F, _P, _I, _P,
     ],
     # cf, S, Yv, Xv, g, coords_y, coords_x, grid_v, grid_u, len_factor,
-    # kstop, hi, wi, e_u, e_v, slab_thickness, attenuation, rgb, alpha
+    # kstop, hi, wi, e_u, e_v, slab_thickness, attenuation, taps, rgb,
+    # alpha
     "correrender_shearwarp_composite": [
         _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-        _F, _F, _F, _F, _P, _P, _I, _P,
+        _F, _F, _F, _F, _P, _P, _P, _I, _P,
+    ],
+    # the same, then probe (ablate_fast_path.py and chip_smoke.py only)
+    "correrender_shearwarp_composite_probe": [
+        _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+        _F, _F, _F, _F, _P, _P, _P, _I, _I, _P,
     ],
     # field, n, lutp, R, lo, hi, out
     "correrender_classify_volume": [_P, _L, _P, _I, _F, _F, _P, _I, _P],

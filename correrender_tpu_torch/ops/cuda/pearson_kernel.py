@@ -35,7 +35,9 @@ def pearson_cuda(stack: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
     Returns:
       ``(...)`` float32 correlation field. A CPU tensor takes
-      :func:`pearson_plain`; a CUDA tensor launches K1.
+      :func:`pearson_plain`; a CUDA tensor launches K1, which streams a
+      16-byte aligned stack of up to 2048 members in tiles and reads any
+      other (an offset view, more members) one warp a voxel.
     """
     n = stack.shape[-1]
     lead = stack.shape[:-1]
@@ -56,12 +58,11 @@ def pearson_cuda(stack: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
                       device=stack.device)
     if series.shape[0] == 0:
         return out.reshape(lead)
-    stats = torch.stack([ref.sum(), (ref * ref).sum()])
     lib = _build.library()
     _build.LAUNCHES["pearson"] += 1
     err = lib.correrender_pearson(
-        series.data_ptr(), ref.data_ptr(), stats.data_ptr(), out.data_ptr(),
-        series.shape[0], n, stack.device.index, _build.stream_of(stack),
+        series.data_ptr(), ref.data_ptr(), out.data_ptr(), series.shape[0], n,
+        stack.device.index, _build.stream_of(stack),
     )
     _build.check(err, "pearson")
     return out.reshape(lead)

@@ -207,6 +207,9 @@ def shearwarp_composite(
     if rgb.numel() == 0:
         return rgb, alpha
     e_u, e_v = (float(e) for e in eye_uv)
+    # The pre-pass's tent taps: one 8-byte entry per (slice, row) and per
+    # (slice, column).
+    taps = torch.empty((s * (hi + wi), 2), dtype=torch.int32, device=dev)
     lib = _build.library()
     _build.LAUNCHES["shearwarp_composite"] += 1
     err = lib.correrender_shearwarp_composite(
@@ -214,7 +217,8 @@ def shearwarp_composite(
         coords_x.data_ptr(), grid_v.data_ptr(), grid_u.data_ptr(),
         len_factor.data_ptr(), None if kstop is None else kstop.data_ptr(),
         hi, wi, e_u, e_v, float(slab_thickness), float(attenuation),
-        rgb.data_ptr(), alpha.data_ptr(), dev.index, _build.stream_of(cf),
+        taps.data_ptr(), rgb.data_ptr(), alpha.data_ptr(), dev.index,
+        _build.stream_of(cf),
     )
     _build.check(err, "shearwarp_composite")
     return rgb, alpha
