@@ -22,7 +22,9 @@ Phases, each asserting; any failure exits non-zero:
    variants equal to the kernel, and its difference from the inline-tap
    arithmetic of the first kernel (and of the tables with q fused as that
    kernel fused it, 0.0 expected) printed; B3 classify_volume (NaN,
-   degenerate domain), B5 exact marcher at 64³ and 512×288 (six
+   ±inf, degenerate domain; n = 1, 3, 5 and 15,673, which leave part of
+   a warp's 128-voxel chunk, and an offset view; its probe layout of 4
+   consecutive voxels a thread equal to it), B5 exact marcher at 64³ and 512×288 (six
    orientations, NaN ignore and yellow, restriction in both metrics, a
    depth-limit plane, a rotated model matrix, transfer functions of 7
    and 21 knots); B7 Spearman, B8 Kendall,
@@ -60,8 +62,10 @@ Phases, each asserting; any failure exits non-zero:
 8. Restricted and depth-clipped fast frame at the headline: the field →
    ``classify_volume`` (B3) × ``restriction_mask`` (radius 0.1 around the
    reference point) → ``dvr_shearwarp(classified=, depth_limit=)`` (K3
-   with kstop): counted launches, B3 against its plain version and both
-   times.
+   with kstop): counted launches, B3 against its plain version; B3's
+   time as 21 launches into one output, each timed alone (median, min,
+   max), beside the wrapper's, the plain version's and the probe
+   layout's (4 consecutive voxels a thread).
 9. The measure switch on the same stack: the Spearman, Kendall and KSG
    fields through ``correlate_field`` (B7, B8, B10) with counted
    launches, each held to its plain version on every 997th voxel, the
@@ -89,18 +93,25 @@ Phases, each asserting; any failure exits non-zero:
    outside the rank band of 192, binned MI's torch time.
 13. B6 (the iso marcher) against its plain version at 64³ and 512×288:
    cameras along each axis, with and without flip, a model matrix, a
-   NaN voxel, ``refine_steps`` 8 and 0; found masks equal, bars on t and
-   on the gradients. B1 (chunk moments) against its plain version:
+   NaN voxel, rays along the box's edge (an odd width: the middle
+   column's slab test meets 0·inf), the eye inside the box, hits in the
+   first and in the last slab, q = 1 and 10, one and two planes, one
+   voxel across the sub or the lane axis, each with ``refine_steps`` 8
+   and 0; found masks and ray directions equal, bars on t and on the
+   gradients. B1 (chunk moments) against its plain version:
    float32 and bfloat16, E = 50 and 13, V = 250³ and an odd V, the
    accumulating form against the separate one; ``pearson_streamed`` of a
    64³ × 1000 stack in 50-member chunks against K1's field.
 14. The iso frame (run after phase 8, on the headline stack): the K1
    field → ``iso_render_exact(..., 0.5)`` at 1920×1080, voxel step 0.25
-   (q = 4), config 1's camera: counted launches (B6 once), B6 against
+   (q = 4), config 1's camera: counted launches (B6 once, and no torch
+   ray setup: ``_ray_fields``, ``iso_ray_fields`` and ``Camera.rays``
+   are counted and must not run), B6 against
    its plain version on the same prepared inputs (with the samples the
    rays took, for the bound), the frame from the plain outputs against
    the frame, the median of 5 frames' stage times (``on_stage``: layout,
-   march, shade), the ray fields' own time, a ``torch.profiler`` split
+   march, shade), the plain version's torch ray fields' time, a
+   ``torch.profiler`` split
    and busy share, and the same frame with the "marmitt" solver (B6
    without refinement, then the torch tail).
 15. ``iso_render`` (plain torch) on config 1's field at 1280×720: card
@@ -218,6 +229,12 @@ K1_EXTRA_N = (1, 2, 3, 4, 5, 37, 100, 128, 129, 1000, 1025, 2048, 2049,
 # thread, the exact exit.
 K3_EQUAL_TO_SHIPPED = (3, 4, 5, 6)
 KENDALL_EXTRA_N = (1, 2, 33, 4096)  # B8 also at these n
+# B3 also at these voxel counts (not multiples of a warp's 128-voxel
+# chunk, nor of the probe layout's 4 voxels a thread), and its layouts
+# (correrender_classify_volume_probe): the shipped warp-strided chunks,
+# and 4 consecutive voxels a thread.
+B3_EXTRA_N = (1, 3, 5, 15_673)
+B3_SHIPPED, B3_QUADS = 0, 1
 # B7 also at its lane and register boundaries (8 lanes up to 128 members,
 # 32 up to 1024, the shared path above).
 SPEARMAN_EXTRA_N = (1, 2, 32, 33, 100, 128, 129, 1024, 1025, 4096)
@@ -540,20 +557,38 @@ def phase_kernels_exact(dev, errs: dict) -> None:
     from correrender_tpu_torch.render.tf import TransferFunction
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    # B3: NaN, ±inf, out-of-domain values and a degenerate domain.
+    # B3: NaN, ±inf, out-of-domain values and a degenerate domain; voxel
+    # counts that leave part of a warp's 128-voxel chunk (and, for the
+    # probe layout, 1-3 voxels for its scalar tail), and an offset view (a
+    # base 4 bytes past a 16-byte boundary: the probe's scalar loop). The
+    # probe layout must give the kernel's output.
     field = 1.5 * torch.randn((20, 24, 28), generator=gen, device=dev)
     field[::3, ::5, ::2] = float("nan")
     field[1, 2, :2] = torch.tensor([float("inf"), -float("inf")])
     lut = torch.rand((256, 4), generator=gen, device=dev)
-    for domain in ((-1.0, 1.0), (0.0, 0.0)):
-        got = classify_volume(field, lut, domain)
-        torch.cuda.synchronize()
-        err = max_abs(got, classify_volume_plain(field, lut, domain))
-        assert err <= ATOL_CLASSIFY_VOLUME, (domain, err)
-        errs["classify_volume"] = max(errs["classify_volume"], err)
-    print(f"[B3 classify_volume] NaN, inf, degenerate domain: "
-          f"max|kernel-plain| {errs['classify_volume']:.3e} "
-          f"(bar {ATOL_CLASSIFY_VOLUME})")
+    gen_b3 = torch.Generator(device=dev).manual_seed(7)
+    flat = 1.5 * torch.randn(B3_EXTRA_N[-1] + 1, generator=gen_b3,
+                             device=dev)
+    flat[::7] = float("nan")
+    fields = [("20x24x28", field)] + [
+        (f"n = {v}", flat[:v].reshape(1, 1, v)) for v in B3_EXTRA_N] + [
+        (f"offset view, n = {B3_EXTRA_N[-1]}",
+         flat[1:].view(1, 1, B3_EXTRA_N[-1]))]
+    for name, f in fields:
+        worst = 0.0
+        for domain in ((-1.0, 1.0), (0.0, 0.0)):
+            got = classify_volume(f, lut, domain)
+            torch.cuda.synchronize()
+            err = max_abs(got, classify_volume_plain(f, lut, domain))
+            assert err <= ATOL_CLASSIFY_VOLUME, (name, domain, err)
+            assert torch.equal(b3_launches(f, lut, domain, B3_QUADS)[1],
+                               got), (name, domain)
+            worst = max(worst, err)
+        errs["classify_volume"] = max(errs["classify_volume"], worst)
+        print(f"[B3 classify_volume] {name} (base at {f.data_ptr() % 16} "
+              f"bytes past 16), NaN, inf, degenerate domain: "
+              f"max|kernel-plain| {worst:.3e} (bar {ATOL_CLASSIFY_VOLUME});"
+              f" the probe layout's output equal")
 
     # B5 at 64³ and 512×288, voxel step 0.1 (q = 10).
     n = EXACT_KERNEL_SIDE
@@ -989,20 +1024,70 @@ def phase_restricted(dev, card: str, errs: dict,
           f"(bar {ATOL_CLASSIFY_VOLUME})")
     assert err <= ATOL_CLASSIFY_VOLUME
     errs["classify_volume"] = max(errs["classify_volume"], err)
-    b3_ms = median_ms(lambda: classify_volume(field, tf.lut, tf.domain))
+    b3_times, shipped = b3_launches(field, tf.lut, tf.domain, B3_SHIPPED,
+                                    reps=21)
+    b3_ms = statistics.median(b3_times)
+    quad_times, quads = b3_launches(field, tf.lut, tf.domain, B3_QUADS,
+                                    reps=21)
+    assert torch.equal(quads, shipped)
+    del shipped, quads
+    wrapper_ms = median_ms(lambda: classify_volume(field, tf.lut, tf.domain))
     b3_plain_ms = median_ms(
         lambda: classify_volume_plain(field, tf.lut, tf.domain))
     frame_ms = median_ms(frame)
     print(f"[restricted {card}] frame {frame_ms:.3f} ms (median of 5: K1 "
           f"field + B3 + mask + layout + K3 with kstop + warp)")
-    print(f"[restricted {card}] B3 classify_volume {b3_ms:.3f} ms, plain "
+    print(f"[restricted {card}] B3 classify_volume kernel {b3_ms:.4f} ms "
+          f"(median of {len(b3_times)} launches into one output, each "
+          f"timed alone: min {min(b3_times):.4f}, max {max(b3_times):.4f}),"
+          f" wrapper {wrapper_ms:.4f} ms (median of 5: the LUT's "
+          f"premultiplication, the output's allocation, the kernel), plain "
           f"{b3_plain_ms:.3f} ms ({side}^3 field -> "
           f"{side**3 * 16 / 1e6:.0f} MB of RGBA)")
+    print(f"[restricted {card}] B3 probe, 4 consecutive voxels a thread: "
+          f"{statistics.median(quad_times):.4f} ms (median of "
+          f"{len(quad_times)}: min {min(quad_times):.4f}, max "
+          f"{max(quad_times):.4f}), output equal to the kernel's")
     # B3: the field read, f32 RGBA written; about 14 flops a voxel.
     b3_bound = bound(20 * field.numel() + 16 * tf.lut.shape[0],
                      14 * field.numel())
     return {"classify_volume": (launches["classify_volume"], b3_ms,
                                 b3_plain_ms) + b3_bound}
+
+
+def b3_launches(field, lut, domain, layout: int, reps: int = 0):
+    """B3 alone through its probe entry (``layout`` B3_SHIPPED or
+    B3_QUADS) on the premultiplied LUT, into one output allocated once:
+    one launch, then ``reps`` more, each timed by its own CUDA events.
+    Returns (the times in ms, the output). These launches are not
+    counted."""
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.render.classify import premultiplied
+
+    lib = _build.library()
+    lutp = premultiplied(lut).contiguous()
+    out = torch.empty(tuple(field.shape) + (4,), dtype=torch.float32,
+                      device=field.device)
+    lo, hi = (float(d) for d in domain)
+
+    def launch():
+        _build.check(lib.correrender_classify_volume_probe(
+            field.data_ptr(), field.numel(), lutp.data_ptr(), lutp.shape[0],
+            lo, hi, out.data_ptr(), layout, field.device.index,
+            _build.stream_of(out)), "classify_volume_probe")
+
+    launch()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    return times, out
 
 
 def phase_eye_inside(dev, card: str) -> None:
@@ -1425,12 +1510,14 @@ def phase_members(dev, card: str, errs: dict, stats: dict) -> None:
 
 
 def iso_errors(got, want) -> tuple[float, float]:
-    """B6 outputs against their plain version: found masks must be equal;
+    """B6 outputs against their plain version: found masks and the ray
+    directions must be equal;
     returns (max |Δt|, max gradient or bracket error) over found rays.
     Values that carry the NaN sentinel must sit in the same places and
     are compared relative to their size."""
     found = want[0]
     assert torch.equal(got[0], found), "found masks differ"
+    assert torch.equal(got[5], want[5]), "ray directions differ"
     if not bool(found.any()):
         return 0.0, 0.0
     err_t = max_abs(got[1][found], want[1][found])
@@ -1468,24 +1555,59 @@ def phase_kernels_iso(dev, errs: dict) -> None:
         "-y": Camera(position=(0.05, 0.9, 0.08), up=(0.0, 0.0, 1.0)),
         "+y": Camera(position=(0.05, -0.9, 0.08), up=(0.0, 0.0, 1.0)),
     }
-    runs = [(name, cam, None) for name, cam in cases.items()]
-    runs.append(("model matrix", near, rotation_y(30.0)))
-    for name, cam, model in runs:
-        plan = plan_raymarch(cam, vol.shape, size, q=4, model_matrix=model)
-        prep = prepare_raymarch_volume(vol, plan["axis_world"], plan["flip"],
-                                       plan["lane_axis"])
+    # (name, volume, camera, iso value, q, model matrix, image size, the
+    # share of rays that hit: its least and its most)
+    some = (0.05, 0.95)  # a surface, and rays past it
+    runs = [(name, vol, cam, iso, 4, None, size, some)
+            for name, cam in cases.items()]
+    runs.append(("model matrix", vol, near, iso, 4, rotation_y(30.0), size,
+                 some))
+    # The ray setup's edge cases: rays along the box's edge x = y = 0.25
+    # (an odd width puts the middle column's direction at x = 0 exactly,
+    # where the slab test meets 0·inf = NaN), and the eye in the box.
+    edge = Camera(position=(0.25, 0.25, 0.9), look_at_point=(0.25, 0.25, 0.0))
+    runs.append(("grazing the box's edge", vol, edge, iso, 4, None,
+                 (size[0] - 1, size[1] - 1), some))
+    runs.append(("eye inside the box", vol, Camera(position=(0.02, 0.03, 0.1)),
+                 iso, 4, None, size, (0.5, 1.0)))
+    # A ramp over the planes in march order (the near camera flips z):
+    # crossings between the first two planes and between the last two.
+    ramp = ((n - 1 - torch.arange(n, device=dev, dtype=torch.float32))
+            / (n - 1)).reshape(n, 1, 1).expand(n, n, n).contiguous()
+    runs.append(("hits in the first slab", ramp, near, 0.5 / (n - 1), 4,
+                 None, size, some))
+    runs.append(("hits in the last slab", ramp, near, (n - 1.5) / (n - 1), 4,
+                 None, size, some))
+    runs += [(f"q = {q}", vol, near, iso, q, None, size, some)
+             for q in (1, 10)]
+    # One or two planes along the march, one voxel across the sub or lane
+    # axis; an unsmoothed field, so the thin slabs hold crossings.
+    # The box is as thin as a voxel there: few rays meet it, or cross it
+    # over more than about a voxel.
+    for name, shape in (("planes = 1", (1, n, n)), ("planes = 2", (2, n, n)),
+                        ("sub = 1", (n, 1, n)), ("lane = 1", (n, n, 1))):
+        thin = torch.randn(shape, generator=gen, device=dev)
+        runs.append((name, thin, near, iso, 4, None, size, (0.005, 0.95)))
+    for name, volume, cam, iso_value, q, model, image, share in runs:
+        plan = plan_raymarch(cam, volume.shape, image, q=q,
+                             model_matrix=model)
+        prep = prepare_raymarch_volume(volume, plan["axis_world"],
+                                       plan["flip"], plan["lane_axis"])
+        extents = (plan["planes"], plan["sub_extent"], plan["lane_extent"])
         for refine in (8, 0):
-            got = iso_raymarch(prep, cam, iso, size, plan,
+            got = iso_raymarch(prep, cam, iso_value, image, plan,
                                refine_steps=refine)
             torch.cuda.synchronize()
-            want = iso_raymarch_plain(prep, cam, iso, size, plan,
+            want = iso_raymarch_plain(prep, cam, iso_value, image, plan,
                                       refine_steps=refine)
             err_t, err_g = iso_errors(got, want)
             hit = float(want[0].float().mean())
-            print(f"[B6 raymarch_iso] {name}, refine {refine}: found equal "
-                  f"({100 * hit:.1f}% of rays), max|dt| {err_t:.3e} (bar "
-                  f"{ATOL_ISO_T}), max|dg| {err_g:.3e} (bar {ATOL_ISO_GRAD})")
-            assert 0.05 < hit < 0.95, name  # a surface, and rays past it
+            print(f"[B6 raymarch_iso] {name} (planes, sub, lane {extents}, "
+                  f"q {q}, {image[0]}x{image[1]}), refine {refine}: found "
+                  f"equal ({100 * hit:.2f}% of rays), max|dt| {err_t:.3e} "
+                  f"(bar {ATOL_ISO_T}), max|dg| {err_g:.3e} (bar "
+                  f"{ATOL_ISO_GRAD}), directions equal")
+            assert share[0] <= hit <= share[1], name
             assert err_t <= ATOL_ISO_T and err_g <= ATOL_ISO_GRAD, name
             errs["raymarch_iso"] = max(errs["raymarch_iso"], err_t, err_g)
 
@@ -1547,8 +1669,10 @@ def phase_iso_frame(dev, card: str, errs: dict, stack: torch.Tensor):
     from correrender_tpu_torch.app.baseline_configs import config1_camera
     from correrender_tpu_torch.calculators.correlation import correlate_field
     from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.ops.cuda import raymarch_kernel
     from correrender_tpu_torch.ops.cuda.raymarch_kernel import (
-        _ray_fields, iso_raymarch, iso_raymarch_plain, plan_raymarch)
+        iso_ray_fields, iso_raymarch, iso_raymarch_plain, plan_raymarch)
+    from correrender_tpu_torch.render.camera import Camera
     from correrender_tpu_torch.render.pipeline import reference_series
     from correrender_tpu_torch.render.raymarch_exact import (
         ExactPrepared, _q_from_voxel_step, iso_render_exact,
@@ -1568,12 +1692,33 @@ def phase_iso_frame(dev, card: str, errs: dict, stack: torch.Tensor):
     frame()  # warm-up outside the counted run
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    _build.reset_launch_counts()
-    img, depth = frame()
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    print(f"[iso] main-path launches: {launches}")
+    # B6 sets up the rays and hands the shading their directions: no
+    # torch ray setup runs in the frame.
+    setups = {"_ray_fields": 0, "iso_ray_fields": 0, "Camera.rays": 0}
+    patched = [(raymarch_kernel, "_ray_fields"),
+               (raymarch_kernel, "iso_ray_fields"), (Camera, "rays")]
+    saved = [getattr(owner, attr) for owner, attr in patched]
+
+    def counting(key, fn):
+        def counted(*args, **kwargs):
+            setups[key] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for (owner, attr), fn, key in zip(patched, saved, setups):
+        setattr(owner, attr, counting(key, fn))
+    try:
+        _build.reset_launch_counts()
+        img, depth = frame()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    finally:
+        for (owner, attr), fn in zip(patched, saved):
+            setattr(owner, attr, fn)
+    print(f"[iso] main-path launches: {launches}; torch ray setups in the "
+          f"frame: {setups}")
     assert launches["raymarch_iso"] == 1, launches
+    assert not any(setups.values()), setups
     assert img.shape == image_size[::-1] + (4,)
     assert bool(torch.isfinite(img).all())
     hit = torch.isfinite(depth)
@@ -1603,7 +1748,7 @@ def phase_iso_frame(dev, card: str, errs: dict, stack: torch.Tensor):
         del res
     err_t, err_g = iso_errors(out, out_p)
     img_p, depth_p = shade_from_march(out_p, field, cam, ISO_VALUE, plan,
-                                      image_size, return_depth=True)
+                                      return_depth=True)
     both = torch.isfinite(depth) & torch.isfinite(depth_p)
     assert torch.equal(torch.isfinite(depth), torch.isfinite(depth_p))
     err_img = max_abs(img[both], img_p[both])
@@ -1623,29 +1768,34 @@ def phase_iso_frame(dev, card: str, errs: dict, stack: torch.Tensor):
         runs.append(clock.times())
     med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     kernel_ms = median_ms(lambda: iso_raymarch(*args))
-    rays_ms = median_ms(lambda: _ray_fields(cam, image_size, plan, dev))
+    rays_ms = median_ms(lambda: iso_ray_fields(cam, image_size, plan, dev))
     plain_ms = statistics.median(plain_times)
     marmitt_ms = median_ms(lambda: frame(mode="marmitt"))
     print(f"[iso {card}] {side}^3 field, {image_size[0]}x{image_size[1]}, "
           f"q 4: frame {med['frame']:.3f} ms (median of 5: layout "
-          f"{med['layout']:.3f}, march {med['march']:.3f} (ray fields + B6),"
+          f"{med['layout']:.3f}, march {med['march']:.3f} (B6 with its ray "
+          f"setup),"
           f" shade {med['shade']:.3f})")
     print(f"[iso {card}] B6 iso_raymarch {kernel_ms:.3f} ms (median of 5, "
-          f"ray fields included; the ray fields alone {rays_ms:.3f} ms), "
+          f"its ray setup included; the plain version's ray fields in torch "
+          f"{rays_ms:.3f} ms), "
           f"plain {plain_ms:.3f} ms (median of 3); marmitt frame (B6 without"
           f" refinement + torch tail) {marmitt_ms:.3f} ms (median of 5)")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[iso {card}] peak max_memory_allocated {peak / 2**30:.2f} GiB")
-    # B6's bound: the prepared volume and the ray fields read once, the
-    # five outputs written; per trilinear sample the rays took (the march
-    # up to each hit, 8 + 6 refinement samples per hit, counted by the
-    # plain version) about 40 flops: 4 z-lerps and 3 bilinear lerps (3
-    # each), the clamps, floors and fractions, γ, t and the plane
-    # coordinates, the sign test.
+    # B6's bound: the prepared volume read once, the five outputs and the
+    # three direction components written; per pixel about 90 flops of ray
+    # setup (the projection, norm and two rotations, the slab test, the
+    # five fields); per trilinear sample the rays took (the march up to
+    # each hit, 8 + 6 refinement samples per hit, counted by the plain
+    # version) about 40 flops: 4 z-lerps and 3 bilinear lerps (3 each),
+    # the clamps, floors and fractions, γ, t and the plane coordinates,
+    # the sign test.
     pixels = image_size[0] * image_size[1]
     print(f"[iso] samples taken: {samples[0]} ({samples[0] / pixels:.1f} per "
           f"ray)")
-    b6_bound = bound(prep.numel() * 4 + 2 * 5 * 4 * pixels, 40 * samples[0])
+    b6_bound = bound(prep.numel() * 4 + 8 * 4 * pixels,
+                     40 * samples[0] + 90 * pixels)
     return {"raymarch_iso": (launches["raymarch_iso"], kernel_ms,
                              plain_ms) + b6_bound}, frame
 

@@ -64,6 +64,10 @@ _SIGNATURES = {
     ],
     # field, n, lutp, R, lo, hi, out
     "correrender_classify_volume": [_P, _L, _P, _I, _F, _F, _P, _I, _P],
+    # the same, then layout (chip_smoke.py only)
+    "correrender_classify_volume_probe": [
+        _P, _L, _P, _I, _F, _F, _P, _I, _I, _P,
+    ],
     # vol, planes, sub_extent, lane_extent, fields, width, height,
     # params (host), TF segment table (host), k, q, nan_mode,
     # restriction, rgb, alpha
@@ -75,10 +79,18 @@ _SIGNATURES = {
         _P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I,
         _P, _I, _P,
     ],
-    # vol, planes, sub_extent, lane_extent, fields, width, height,
-    # params (host), q, refine_steps, out
+    # vol, planes, sub_extent, lane_extent, width, height, params (host),
+    # axis_world, sub_axis, lane_axis, q, refine_steps, out, dirs
     "correrender_raymarch_iso": [
-        _P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P,
+        _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P,
+    ],
+    # vol, planes, sub_extent, lane_extent, fields, width, height, params,
+    # axis_world, sub_axis, lane_axis, q, refine_steps, out, dirs,
+    # tile_width, cache, compact, setup, probe, samples (ablate_iso.py
+    # only)
+    "correrender_raymarch_iso_probe": [
+        _P, _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+        _I, _I, _I, _P, _I, _P,
     ],
     # chunk, bf16, ref, acc, out, v, e
     "correrender_chunk_moments": [_P, _I, _P, _P, _P, _L, _I, _I, _P],

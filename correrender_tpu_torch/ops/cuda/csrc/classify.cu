@@ -24,10 +24,23 @@
 // the camera's slice orientation, so no transposed copy of the field is
 // made, rounds the four channels to bf16 and stores them as one 8-byte
 // word, in the (S, Yv, Xv, 4) layout that K3 reads.
-// B3 is one thread per voxel of a contiguous field, one 16-byte store.
+// B3 is a persistent grid-stride stream over a contiguous field (as many
+// blocks as the card holds at once). Each warp classifies a chunk of 128
+// voxels a step: lane t loads voxels t, t + 32, t + 64 and t + 96 (four
+// coalesced 128-byte loads in flight), classifies them and stores each
+// with a 16-byte streaming store (__stcs: written once, not read again
+// here), so every store instruction writes 512 contiguous bytes, whole
+// sectors; the last chunk's voxels past n are masked. Any 4-byte aligned
+// base takes this path, an offset view included. The probe entry
+// launches the other layout, 4 consecutive voxels a thread (one 16-byte
+// load, four 16-byte stores 64 bytes apart across the warp, a scalar
+// tail, a scalar loop for a base that is not 16-byte aligned): its store
+// instructions write half sectors spread over 2 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -74,15 +87,111 @@ __global__ void classify_cf_kernel(const float* __restrict__ field,
   out[static_cast<long long>(s) * yv * xv + p] = word;
 }
 
-__global__ void classify_volume_kernel(const float* __restrict__ field,
-                                       long long n,
-                                       const float4* __restrict__ lutp,
-                                       int res, float lo, float hi,
-                                       float4* __restrict__ out) {
-  const long long i =
+constexpr int kVolumeThreads = 256;
+constexpr int kChunk = 128;  // voxels a warp classifies a step
+// B3's layouts: warp-strided chunks (shipped), 4 consecutive voxels a
+// thread from one 16-byte load (probe), and its scalar loop.
+constexpr int kStrided = 0, kQuads = 1, kScalar = 2;
+
+template <int LAYOUT>
+__global__ void __launch_bounds__(kVolumeThreads) classify_volume_kernel(
+    const float* __restrict__ field, long long n,
+    const float4* __restrict__ lutp, int res, float lo, float hi,
+    float4* __restrict__ out) {
+  const long long first =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  out[i] = lut_lerp(__ldg(field + i), lutp, res, lo, hi);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  if constexpr (LAYOUT == kStrided) {
+    const long long warps = stride / 32;
+    const int lane = threadIdx.x & 31;
+    for (long long c = first / 32; c * kChunk < n; c += warps) {
+      const long long base = c * kChunk + lane;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long i = base + 32 * j;
+        v[j] = i < n ? __ldg(field + i) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long i = base + 32 * j;
+        if (i < n) __stcs(out + i, lut_lerp(v[j], lutp, res, lo, hi));
+      }
+    }
+  } else {
+    long long head = 0;  // voxels before the scalar loop
+    if constexpr (LAYOUT == kQuads) {
+      const long long quads = n >> 2;
+      const float4* __restrict__ field4 =
+          reinterpret_cast<const float4*>(field);
+      for (long long i = first; i < quads; i += stride) {
+        const float4 v = __ldg(field4 + i);
+        float4* __restrict__ o = out + 4 * i;
+        __stcs(o, lut_lerp(v.x, lutp, res, lo, hi));
+        __stcs(o + 1, lut_lerp(v.y, lutp, res, lo, hi));
+        __stcs(o + 2, lut_lerp(v.z, lutp, res, lo, hi));
+        __stcs(o + 3, lut_lerp(v.w, lutp, res, lo, hi));
+      }
+      head = quads << 2;
+    }
+    for (long long i = head + first; i < n; i += stride) {
+      __stcs(out + i, lut_lerp(__ldg(field + i), lutp, res, lo, hi));
+    }
+  }
+}
+
+int g_sm_count = 0;
+
+template <int LAYOUT>
+cudaError_t launch_volume(const float* field, long long n, const float4* lutp,
+                          int res, float lo, float hi, float4* out,
+                          cudaStream_t stream) {
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, classify_volume_kernel<LAYOUT>, kVolumeThreads, 0);
+  if (err != cudaSuccess) return err;
+  const long long threads = LAYOUT == kStrided ? (n + kChunk - 1) / kChunk * 32
+                            : LAYOUT == kQuads ? (n + 3) / 4
+                                               : n;
+  const long long needed = (threads + kVolumeThreads - 1) / kVolumeThreads;
+  const long long resident =
+      static_cast<long long>(per_sm > 0 ? per_sm : 1) * g_sm_count;
+  const unsigned blocks =
+      static_cast<unsigned>(needed < resident ? needed : resident);
+  classify_volume_kernel<LAYOUT><<<blocks, kVolumeThreads, 0, stream>>>(
+      field, n, lutp, res, lo, hi, out);
+  return cudaGetLastError();
+}
+
+// B3's launch: `layout` 0 is the shipped warp-strided stream, 1 the probe
+// of 4 consecutive voxels a thread (its scalar loop where the base is not
+// 16-byte aligned).
+int launch_classify_volume(const void* field, long long n, const void* lutp,
+                           int res, float lo, float hi, void* out, int layout,
+                           int device, void* stream) {
+  if (n < 1 || res < 1 || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(field) % 4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (g_sm_count == 0) {
+    err = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+  }
+  const auto* f = static_cast<const float*>(field);
+  const auto* l = static_cast<const float4*>(lutp);
+  auto* o = static_cast<float4*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (layout == kStrided) {
+    return launch_volume<kStrided>(f, n, l, res, lo, hi, o, s);
+  }
+  if (layout != kQuads) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(field) % 16 == 0) {
+    return launch_volume<kQuads>(f, n, l, res, lo, hi, o, s);
+  }
+  return launch_volume<kScalar>(f, n, l, res, lo, hi, o, s);
 }
 
 }  // namespace
@@ -105,14 +214,15 @@ extern "C" int correrender_classify_volume(const void* field, long long n,
                                            const void* lutp, int res,
                                            float lo, float hi, void* out,
                                            int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  constexpr int kThreads = 256;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  classify_volume_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(field), n, static_cast<const float4*>(lutp),
-      res, lo, hi, static_cast<float4*>(out));
-  return cudaGetLastError();
+  return launch_classify_volume(field, n, lutp, res, lo, hi, out, kStrided,
+                                device, stream);
+}
+
+// B3 with 4 consecutive voxels a thread, for chip_smoke.py only (`layout`
+// 1; 0 is the shipped kernel): the same answer, another store pattern.
+extern "C" int correrender_classify_volume_probe(
+    const void* field, long long n, const void* lutp, int res, float lo,
+    float hi, void* out, int layout, int device, void* stream) {
+  return launch_classify_volume(field, n, lutp, res, lo, hi, out, layout,
+                                device, stream);
 }

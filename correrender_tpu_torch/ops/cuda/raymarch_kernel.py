@@ -9,9 +9,12 @@ slab k, sub-step s sits at march distance ``γ(k, s) = g0 + (k − 1)·gk +
 s·gs`` along the axis, and its in-plane voxel coordinates are affine in
 γ with per-ray slopes: ``u = u0c + γ·su``, ``v = v0c + γ·sv``. The host
 computes the camera constants (:func:`_common_params`, float64 then
-float32) and the per-ray fields ``su, sv, inv_da, t0, t1``
-(:func:`_ray_fields`, in PyTorch on the volume's device); the kernel and
-its plain version march from the same inputs.
+float32). B5's per-ray fields ``su, sv, inv_da, t0, t1`` come from
+:func:`_ray_fields` (PyTorch on the volume's device), and B5 and its
+plain version march from the same inputs. B6 sets up its rays itself,
+from the host constants of :func:`_iso_ray_constants`, in the order of
+single float32 operations of :func:`iso_ray_fields`, which its plain
+version calls: the two agree bit for bit.
 
 Departures from the TPU kernel, by design:
 
@@ -518,36 +521,134 @@ def dvr_raymarch(vol_prepared, camera, tf, image_size, plan,
     return rgb, alpha
 
 
-def _iso_params(plan, camera, iso_value):
-    """Host scalars of the iso march, float32: the layout of
-    ``IsoParams.p`` in ``csrc/raymarch.cu``."""
+def model_eye(plan, camera, inv_view=None) -> np.ndarray:
+    """The eye in model space, ``m_rot·o + m_trans`` in single float32
+    operations: the origin of the rays whose directions
+    :func:`iso_raymarch` returns. ``inv_view``: the camera's inverse view
+    matrix, where the caller has it."""
+    if inv_view is None:
+        inv_view = camera.inverse_view_matrix()
+    rot = np.asarray(plan["m_rot"], np.float32)
+    eye = inv_view[:3, 3]
+    return ((rot[:, 0] * eye[0] + rot[:, 1] * eye[1]) + rot[:, 2] * eye[2]
+            + np.asarray(plan["m_trans"], np.float32))
+
+
+def _iso_ray_constants(plan, camera, image_size) -> dict:
+    """Host constants of B6's ray setup, float32: the inverse
+    projection's first three rows, the inverse view's rotation, the model
+    inverse's rotation with its rows in (principal, sub, lane) order, the
+    box's corners less the eye (:func:`model_eye`) in that axis order,
+    the sign of the slice order and the sub and lane voxel extents."""
+    width, height = image_size
+    order = [plan["axis_world"], plan["sub_axis"], plan["lane_axis"]]
+    inv_view = camera.inverse_view_matrix()
+    eye = model_eye(plan, camera, inv_view)
+    voxel = plan["voxel"].astype(np.float32)
+    return {
+        "inv_proj": camera.inverse_projection_matrix(width / height)[:3],
+        "inv_view": inv_view[:3, :3],
+        "rot": np.asarray(plan["m_rot"], np.float32)[order],
+        "lo": (plan["box_min"].astype(np.float32) - eye)[order],
+        "hi": (plan["box_max"].astype(np.float32) - eye)[order],
+        "sgn": np.float32(-1.0 if plan["flip"] else 1.0),
+        "vox_s": voxel[plan["sub_axis"]], "vox_l": voxel[plan["lane_axis"]],
+        "order": order,
+    }
+
+
+def iso_ray_fields(camera, image_size, plan, device):
+    """B6's per-ray fields ``(su, sv, inv_da, t0, t1)``, each ``(H, W)``,
+    and the unit model-space ray directions ``(H, W, 3)``, in the order
+    of single float32 operations that B6's ray setup (``iso_ray_setup``
+    in ``csrc/raymarch.cu``) follows: the NDC pixel centre through the
+    inverse projection (NDC z = 1), normalised by the square root of a
+    sum of squares, then through the inverse view's rotation and the
+    model inverse's as explicit sums of products; the slab test with
+    NaN-propagating minima and maxima; ``t0 = max(t_near, 0)``, ``t1 =
+    t_far`` where the ray meets the box in front of the eye, else ``t0 −
+    1``; ``inv_da = 1/(sgn·d_a)``, ``su = d_s·inv_da/voxel_s``, ``sv =
+    d_l·inv_da/voxel_l``. Every division divides by a tensor (PyTorch on
+    a GPU multiplies by the reciprocal of a Python number). The fields
+    are those of :func:`_ray_fields` up to rounding."""
+    c = _iso_ray_constants(plan, camera, image_size)
+    width, height = image_size
+    f32 = np.float32
+
+    def centres(count):  # the pixel centres in [0, 1]
+        return (np.arange(count, dtype=f32) + f32(0.5)) / f32(count)
+
+    gx = torch.as_tensor(centres(width) * f32(2.0) - f32(1.0),
+                         device=device).reshape(1, width)
+    gy = torch.as_tensor(f32(1.0) - centres(height) * f32(2.0),
+                         device=device).reshape(height, 1)
+    p = c["inv_proj"]
+    vt = [((gx * float(p[i, 0]) + gy * float(p[i, 1])) + float(p[i, 2]))
+          + float(p[i, 3]) for i in range(3)]
+    nrm = torch.sqrt((vt[0] * vt[0] + vt[1] * vt[1]) + vt[2] * vt[2])
+    vd = [v / nrm for v in vt]
+
+    def rotate(m, v):
+        return [(v[0] * float(m[i, 0]) + v[1] * float(m[i, 1]))
+                + v[2] * float(m[i, 2]) for i in range(3)]
+
+    d = rotate(c["rot"], rotate(c["inv_view"], vd))  # (principal, sub, lane)
+    t_near = t_far = None
+    for i in range(3):
+        inv = torch.reciprocal(d[i])
+        ta, tb = inv * float(c["lo"][i]), inv * float(c["hi"][i])
+        lo, hi = torch.minimum(ta, tb), torch.maximum(ta, tb)
+        t_near = lo if t_near is None else torch.maximum(t_near, lo)
+        t_far = hi if t_far is None else torch.minimum(t_far, hi)
+    t0 = torch.clamp_min(t_near, 0.0)
+    t1 = torch.where((t_near <= t_far) & (t_far >= 0.0), t_far, t0 - 1.0)
+    inv_da = torch.reciprocal(d[0] * float(c["sgn"]))
+
+    def t32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    su = (d[1] * inv_da) / t32(c["vox_s"])
+    sv = (d[2] * inv_da) / t32(c["vox_l"])
+    directions = [None] * 3
+    for i, ch in enumerate(c["order"]):
+        directions[ch] = d[i]
+    return su, sv, inv_da, t0, t1, torch.stack(directions, dim=-1)
+
+
+def _iso_params(plan, camera, iso_value, image_size):
+    """Host scalars of the iso march and its ray setup, float32: the
+    layout of ``IsoParams.p`` then ``IsoParams.r`` in
+    ``csrc/raymarch.cu``."""
     q = plan["q"]
     g0, gk, gs, u0c, v0c, g0p = _common_params(plan, camera, q)
-    return np.asarray([
+    c = _iso_ray_constants(plan, camera, image_size)
+    return np.concatenate([np.asarray([
         g0, gk, gs, plan["sub_extent"] - 1, plan["lane_extent"] - 1, u0c,
         v0c, float(iso_value), g0p, 1.0 / gk, 1.0 / q,
-    ], np.float32)
+    ], np.float32), c["inv_proj"].reshape(-1), c["inv_view"].reshape(-1),
+        c["rot"].reshape(-1), c["lo"], c["hi"],
+        np.asarray([c["sgn"], c["vox_s"], c["vox_l"]], np.float32)])
 
 
 def iso_raymarch_plain(vol_prepared, camera, iso_value, image_size, plan,
                        refine_steps: int = 8, samples=None):
-    """Plain version of B6: the march as a plane-order loop over all
-    rays at once (a found ray stops as a mask), then the bisection and
-    the gradients for every ray, kept where a ray found its crossing.
-    Returns :func:`iso_raymarch`'s five ``(H, W)`` tensors. A list passed
-    as ``samples`` receives the number of trilinear samples the rays
-    took: the march's samples up to each crossing, and ``refine_steps +
-    6`` for each found ray's refinement.
+    """Plain version of B6: the ray fields (:func:`iso_ray_fields`), then
+    the march as a plane-order loop over all rays at once (a found ray
+    stops as a mask), then the bisection and the gradients for every ray,
+    kept where a ray found its crossing. Returns :func:`iso_raymarch`'s
+    six tensors. A list passed as ``samples`` receives the number of
+    trilinear samples the rays took: the march's samples up to each
+    crossing, and ``refine_steps + 6`` for each found ray's refinement.
 
     The positions and sample values that decide a crossing are single
     float32 tensor operations, so they round as the kernel's do.
     """
     _check_prepared(vol_prepared, plan)
-    params = _iso_params(plan, camera, iso_value)
+    params = _iso_params(plan, camera, iso_value, image_size)
     (g0, gk, gs, u_max, v_max, u0c, v0c, iso, g0p, inv_ga, inv_q) = (
-        np.float32(v) for v in params)
-    su, sv, inv_da, t0, t1 = _ray_fields(camera, image_size, plan,
-                                         vol_prepared.device)
+        np.float32(v) for v in params[:11])
+    su, sv, inv_da, t0, t1, directions = iso_ray_fields(
+        camera, image_size, plan, vol_prepared.device)
     planes, n_sub, n_lane = vol_prepared.shape
     flat = vol_prepared.reshape(-1)
     plane = n_sub * n_lane
@@ -585,7 +686,7 @@ def iso_raymarch_plain(vol_prepared, camera, iso_value, image_size, plan,
         samples.append(int(taken) + int(found.sum()) * (
             refine_steps + 6 if refine_steps > 0 else 0))
     if refine_steps <= 0:
-        return found, t_hit, f_lo, f_hi, zero
+        return found, t_hit, f_lo, f_hi, zero, directions
 
     def sample_ray(gamma, du=0.0, dv=0.0, dz=0.0):
         zc = torch.clamp((gamma - float(g0p)) * float(inv_ga) + dz, 0.0,
@@ -614,7 +715,8 @@ def iso_raymarch_plain(vol_prepared, camera, iso_value, image_size, plan,
             sample_ray(g, dz=1.0) - sample_ray(g, dz=-1.0),
             sample_ray(g, du=1.0) - sample_ray(g, du=-1.0),
             sample_ray(g, dv=1.0) - sample_ray(g, dv=-1.0))
-    return (found,) + tuple(torch.where(found, o, 0.0) for o in outs)
+    return (found,) + tuple(torch.where(found, o, 0.0) for o in outs) + (
+        directions,)
 
 
 def iso_raymarch(vol_prepared, camera, iso_value, image_size, plan,
@@ -629,14 +731,16 @@ def iso_raymarch(vol_prepared, camera, iso_value, image_size, plan,
       refine_steps: bisection steps of the crossing in the kernel.
 
     Returns:
-      Five ``(H, W)`` tensors. With ``refine_steps > 0``: ``(found (bool),
-      t_surf, gA, gS, gL)``, the refined eye distance and the central
-      differences of ±1 voxel along the plan's (principal, sub, lane)
-      axes in the prepared layout. With ``refine_steps == 0``: ``(found,
-      t_hit, f_lo, f_hi, 0)``, the sample that crossed and ``f = value −
-      iso`` at it and at the active sample before it, for the torch
-      solvers. A ray without a crossing holds zeros. A CPU volume takes
-      :func:`iso_raymarch_plain`; a CUDA volume launches B6.
+      Five ``(H, W)`` tensors, then the ``(H, W, 3)`` unit ray directions
+      in model space (rays from :func:`model_eye`) that the march used.
+      With ``refine_steps > 0``: ``(found (bool), t_surf, gA, gS, gL)``,
+      the refined eye distance and the central differences of ±1 voxel
+      along the plan's (principal, sub, lane) axes in the prepared
+      layout. With ``refine_steps == 0``: ``(found, t_hit, f_lo, f_hi,
+      0)``, the sample that crossed and ``f = value − iso`` at it and at
+      the active sample before it, for the torch solvers. A ray without a
+      crossing holds zeros. A CPU volume takes :func:`iso_raymarch_plain`;
+      a CUDA volume launches B6, which sets up its own rays.
     """
     dev = vol_prepared.device
     if dev.type == "cpu":
@@ -649,18 +753,20 @@ def iso_raymarch(vol_prepared, camera, iso_value, image_size, plan,
     _check_prepared(vol_prepared, plan)
     if refine_steps < 0:
         raise ValueError(f"refine_steps {refine_steps} < 0")
-    params = _iso_params(plan, camera, iso_value)
-    fields = _ray_fields(camera, image_size, plan, dev).contiguous()
+    params = _iso_params(plan, camera, iso_value, image_size)
     width, height = image_size
     out = torch.empty((5, height, width), dtype=torch.float32, device=dev)
+    directions = torch.empty((height, width, 3), dtype=torch.float32,
+                             device=dev)
     if out.numel() == 0:
-        return (out[0] > 0.5,) + tuple(out[1:])
+        return (out[0] > 0.5,) + tuple(out[1:]) + (directions,)
     planes, sub, lane = vol_prepared.shape
     lib = _build.library()
     _build.LAUNCHES["raymarch_iso"] += 1
     err = lib.correrender_raymarch_iso(
-        vol_prepared.data_ptr(), planes, sub, lane, fields.data_ptr(), width,
-        height, params.ctypes.data, plan["q"], int(refine_steps),
-        out.data_ptr(), dev.index, _build.stream_of(out))
+        vol_prepared.data_ptr(), planes, sub, lane, width, height,
+        params.ctypes.data, plan["axis_world"], plan["sub_axis"],
+        plan["lane_axis"], plan["q"], int(refine_steps), out.data_ptr(),
+        directions.data_ptr(), dev.index, _build.stream_of(out))
     _build.check(err, "raymarch_iso")
-    return (out[0] > 0.5,) + tuple(out[1:])
+    return (out[0] > 0.5,) + tuple(out[1:]) + (directions,)

@@ -30,16 +30,13 @@ from correrender_tpu_torch.ops.cuda.raymarch_kernel import (
     RaymarchUnsupported,
     dvr_raymarch,
     iso_raymarch,
+    model_eye,
     plan_raymarch,
     prepare_raymarch_volume,
     tf_hinges,
 )
 from correrender_tpu_torch.render.camera import default_render_box
-from correrender_tpu_torch.render.dvr import (
-    blend_background,
-    dvr_render,
-    to_model_space,
-)
+from correrender_tpu_torch.render.dvr import blend_background, dvr_render
 from correrender_tpu_torch.render.iso import (
     _refine_and_shade_core,
     iso_render,
@@ -184,7 +181,7 @@ def iso_render_exact(
                        refine_steps=in_kernel)
     hook("march", out)
     res = shade_from_march(
-        out, volume, camera, iso_value, plan, image_size, box=box,
+        out, volume, camera, iso_value, plan, box=box,
         surface_color=surface_color, background=background,
         refine_steps=refine_steps, intersection_mode=intersection_mode,
         return_depth=return_depth)
@@ -192,13 +189,15 @@ def iso_render_exact(
     return res
 
 
-def shade_from_march(out, volume, camera, iso_value, plan, image_size,
-                     box=None, surface_color=(0.9, 0.4, 0.2, 1.0),
+def shade_from_march(out, volume, camera, iso_value, plan, box=None,
+                     surface_color=(0.9, 0.4, 0.2, 1.0),
                      background=(0.0, 0.0, 0.0, 1.0), refine_steps: int = 8,
                      intersection_mode: str = "bisection",
                      return_depth: bool = False):
-    """The tail of :func:`iso_render_exact`: the frame from B6's five
-    outputs ``out`` (or its plain version's) for ``plan``.
+    """The tail of :func:`iso_render_exact`: the frame from B6's six
+    outputs ``out`` (or its plain version's) for ``plan``. The frame's
+    rays are the march's: ``out``'s unit directions from the model-space
+    eye (:func:`model_eye`), so no stage sets them up twice.
 
     With "bisection", ``out`` holds the refined hits and the gradients
     along the plan's (principal, sub, lane) axes, which are scaled by
@@ -206,14 +205,11 @@ def shade_from_march(out, volume, camera, iso_value, plan, image_size,
     holds the crossing samples, and ``render/iso.py``'s solver refines
     ``[t_hit − Δt, t_hit]`` in ``volume``, ``Δt = voxel_a/(q·|d_a|)``.
     """
-    width, height = image_size
-    origin, directions = to_model_space(
-        *camera.rays(width, height, device=volume.device), plan["m_rot"],
-        plan["m_trans"])
+    directions = out[5]
     a, sub, lane = plan["axis_world"], plan["sub_axis"], plan["lane_axis"]
     voxel = np.abs(plan["voxel"])
     if intersection_mode == "bisection":
-        found, t_surf, g_a, g_s, g_l = out
+        found, t_surf, g_a, g_s, g_l = out[:5]
         comps = [None, None, None]
         comps[a] = g_a * float(np.float32(
             (-1.0 if plan["flip"] else 1.0) / voxel[a]))
@@ -223,6 +219,7 @@ def shade_from_march(out, volume, camera, iso_value, plan, image_size,
                              surface_color, background, found, t_surf,
                              return_depth=bool(return_depth))
     found, t_hit = out[0], out[1]
+    origin = torch.as_tensor(model_eye(plan, camera), device=volume.device)
     if box is None:
         box = default_render_box(volume.shape)
     # Δt divided as a tensor: PyTorch turns a Python numerator into a
