@@ -125,6 +125,38 @@ Phases, each asserting; any failure exits non-zero:
    times, Gvoxels/s, effective GB/s and the bound; B1 per chunk against
    its plain version's time and the three-call torch formulation
    (``sum``, ``sum`` of squares, ``ref @ chunk``).
+17. The Scene at the headline (run after phase 9, on the same stack):
+   a ``VolumeData`` on the card served member by member from the stack
+   (the time to build its member stack), a Pearson
+   ``CorrelationCalculator`` and a ``Scene`` at 1920×1080 with config
+   1's camera and TF. For each interaction, counted launches, the
+   median of 5 frames (CUDA events; each frame makes its change and
+   renders) and the frame against the direct call on the same inputs:
+   (a) the reference point moved (K1, K2, K3, the warp); (b) the camera
+   moved within its principal axis (no K2: the layout is reused); (c)
+   the TF changed (K2, K3); (d) ``quality="exact"`` (B5); (e) ``iso_ray``
+   exact (B6) and fast (``render/iso_fast.py``, no kernel; its first-hit
+   scan held to the same scan on the CPU, one thread, on every 24th row
+   of the intermediate rays); (f) ``iso_ray`` and ``dvr`` in one view
+   (the depth merge, then K3 with kstop); (g) a restricted calculator
+   (B3), and its ``iso_ray`` frame (B6 on the NaN-filled slab, the
+   layout built each frame, beside the same call with the layout built
+   once). Also the direct call's time, the cache's bytes and the peak
+   memory; and the fast iso frame at config 1's size against the CPU.
+18. (Run after phase 4, before any ``torch.profiler`` window: later in
+   the run short windows came back without device events.) BASELINE
+   config 4 through its own entry point on the card, its
+   Scene frames held to the same Scene on the CPU; then a time-dependent
+   store at the headline's grid: 250³ voxels × 40 time steps, one
+   member, float32, written as uncompressed Zarr chunks of one step
+   under build/ (deleted after the phase), opened by ``load_volume``, a
+   time-mode calculator with ``time_lag=2`` (n = 38) and
+   ``render_flythrough`` of ``orbit_path(8)`` at 1920×1080 stepping the
+   time: the load, time-stack and field times, the field against a
+   float64 Pearson of every 997th voxel, K1 in its tiled regime for lags
+   +2 and −2 (``torch.profiler`` names ``pearson_tiled_kernel``), the
+   frames' launches and time, how often the field was computed, the most
+   frames in flight and the peak memory.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -181,6 +213,17 @@ ATOL_ISO_FRAME = 1e-3  # image where both hit (tests/test_torch_port_iso.py)
 # with separate roundings, so they agree to the bit.
 TOL_MOMENTS = (2e-6, 2e-6, 2e-5)
 ATOL_STREAMED = 1e-5  # pearson_streamed against K1 and a float64 Pearson
+# A Scene frame against the direct call on the same inputs: the same
+# kernels on the same tensors.
+ATOL_SCENE = 1e-6
+# The fast iso scan on the card against the CPU on the same rays: both
+# sum the tent products in float32 in another order, so a slab value
+# rounded to bfloat16 may land one ulp apart and move a crossing within
+# its slice (never by a slice, in JAX-vs-port tests a 0.05 slice).
+MIN_ISO_SCAN_FOUND_EQUAL = 0.999
+MAX_ISO_SCAN_DEPTH = 1.0  # slices
+ISO_SCAN_ROWS = 24  # the CPU scans every 24th intermediate row
+TIMELAG_STEPS, TIMELAG_LAG, FLY_FRAMES = 40, 2, 8
 
 # Published peaks of one H100 SXM at its full 700 W: HBM bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -1940,6 +1983,535 @@ def phase_streamed(dev, card: str, errs: dict, stats: dict) -> None:
     del bufs
 
 
+def scene_frame_check(card: str, label: str, render, step, direct,
+                      expect=(), forbid=(), frames: int = 5):
+    """One Scene interaction: ``step(i)`` makes frame i's change, then
+    ``render()`` draws it. Frame 0 warms up; frame 1 is counted and held
+    to ``direct()`` (the same call outside the Scene, on the same inputs);
+    frames 2.. are timed with CUDA events, the change included. Returns
+    (the median ms, the counted launches)."""
+    from correrender_tpu_torch.ops.cuda import _build
+
+    step(0)
+    render()
+    torch.cuda.synchronize()
+    step(1)
+    _build.reset_launch_counts()
+    img = render()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert all(launches.get(k, 0) >= 1 for k in expect), (label, launches)
+    assert not any(launches.get(k, 0) for k in forbid), (label, launches)
+    assert bool(torch.isfinite(img).all()) and float(img[..., 3].max()) > 0
+    err = max_abs(img, direct())
+    assert err <= ATOL_SCENE, (label, err)
+    times = []
+    for i in range(2, 2 + frames):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(i)
+        render()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    print(f"[scene {card}] {label}: frame {ms:.3f} ms (median of {frames}, "
+          f"min {min(times):.3f}, max {max(times):.3f}); launches "
+          f"{launches}; max|scene - direct| {err:.3e} (bar {ATOL_SCENE})")
+    return ms, launches
+
+
+def iso_scan_rows_cpu(card: str, stages: dict, iso_value: float) -> None:
+    """The fast iso scan the card ran (``stages`` from ``on_stage``)
+    against the same scan on the CPU, one thread, on every
+    ISO_SCAN_ROWS-th intermediate row."""
+    from correrender_tpu_torch.render.iso_fast import _first_hit_scan
+
+    found, depth, grad, geo = stages["scan"]
+    prep = stages["prepare"]
+    a, flip, _ = prep["key"]
+    in_plane = [i for i in range(3) if i != a]
+    rows = torch.arange(0, found.shape[0], ISO_SCAN_ROWS)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # see ROADMAP C
+    t0 = time.perf_counter()
+    want = _first_hit_scan(
+        prep["cvol"].cpu(), geo["g"], geo["coords_v"], geo["coords_u"],
+        np.asarray(geo["grid_v"])[rows.numpy()], geo["grid_u"],
+        (geo["e_u"], geo["e_v"]), iso_value,
+        ip0=in_plane[0], ip1=in_plane[1], ax=a)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    f_card, d_card = found[rows.to(found.device)].cpu(), depth[
+        rows.to(found.device)].cpu()
+    equal = float((f_card == want[0]).float().mean())
+    both = f_card & want[0]
+    d_err = float((d_card[both] - want[1][both]).abs().max()) if bool(
+        both.any()) else 0.0
+    print(f"[scene {card}] fast iso scan, {len(rows)} of {found.shape[0]} "
+          f"intermediate rows x {found.shape[1]} on the CPU (1 thread, "
+          f"{cpu_s:.1f} s): found equal on {100 * equal:.4f}% (bar "
+          f"{100 * MIN_ISO_SCAN_FOUND_EQUAL}%), max|depth card-CPU| "
+          f"{d_err:.3e} slices (bar {MAX_ISO_SCAN_DEPTH}), "
+          f"{100 * float(f_card.float().mean()):.2f}% of the rays hit")
+    assert equal >= MIN_ISO_SCAN_FOUND_EQUAL and d_err <= MAX_ISO_SCAN_DEPTH
+
+
+def phase_iso_fast_config1(dev, card: str) -> None:
+    """The fast iso frame at config 1's size on the card against the same
+    function on the CPU (one thread), where it runs the same torch."""
+    from correrender_tpu_torch.app.baseline_configs import config1_camera
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+    from correrender_tpu_torch.render.iso_fast import iso_shearwarp
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+    from correrender_tpu_torch.utils.metrics import ssim
+
+    (xs, ys, zs), members = CONFIG1_GRID, 100
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stack = synth_box_stack(xs, ys, zs, members, gen, dev)
+    field = correlate_field(stack, stack[zs // 2, ys // 8, xs // 8])
+    kw = dict(image_size=CONFIG1_IMAGE, background=(0, 0, 0, 0),
+              axial_supersample=2)
+    img = iso_shearwarp(field, config1_camera(), ISO_VALUE, **kw)
+    ms = median_ms(lambda: iso_shearwarp(field, config1_camera(), ISO_VALUE,
+                                         **kw), reps=3)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # see ROADMAP C
+    t0 = time.perf_counter()
+    want = iso_shearwarp(field.cpu(), config1_camera(), ISO_VALUE, **kw)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    a, b = img.cpu().numpy(), want.numpy()
+    err, sim = float(np.abs(a - b).max()), ssim(a, b)
+    cover = float((a[..., 3] > 0).mean())
+    print(f"[scene {card}] fast iso at config 1's size ({xs}x{ys}x{zs}, "
+          f"{CONFIG1_IMAGE[0]}x{CONFIG1_IMAGE[1]}, axial 2): {ms:.3f} ms "
+          f"(median of 3); card vs CPU (1 thread, {cpu_s:.1f} s) max-abs "
+          f"{err:.3e} (bar {MAX_ABS_FRAME}), SSIM {sim:.6f} (bar "
+          f"{MIN_SSIM_FRAME}), coverage {100 * cover:.2f}%")
+    assert err <= MAX_ABS_FRAME and sim >= MIN_SSIM_FRAME and cover > 0.01
+
+
+def phase_scene(dev, card: str, stack: torch.Tensor) -> None:
+    """17. The Scene on the headline stack (see the module docstring)."""
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_transfer_function)
+    from correrender_tpu_torch.app.state import Scene, _composite
+    from correrender_tpu_torch.calculators.correlation import (
+        CorrelationCalculator, correlate_field)
+    from correrender_tpu_torch.core.fields import GridMetadata, VolumeData
+    from correrender_tpu_torch.render.camera import Camera
+    from correrender_tpu_torch.render.classify import classify_volume
+    from correrender_tpu_torch.render.dvr_fast import dvr_shearwarp
+    from correrender_tpu_torch.render.iso_fast import iso_shearwarp
+    from correrender_tpu_torch.render.raymarch_exact import (
+        ExactPrepared, dvr_render_exact, iso_render_exact)
+    from correrender_tpu_torch.render.restriction import (
+        apply_restriction_rgba, restriction_center, restriction_mask)
+    from correrender_tpu_torch.render.tf import TransferFunction
+
+    side, members = stack.shape[0], stack.shape[-1]
+    image_size = HEADLINE_IMAGE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    vd = VolumeData(GridMetadata(xs=side, ys=side, zs=side, es=members),
+                    device=dev)
+    vd.add_field("q", lambda t, e: stack[..., e])  # one member a slab
+    t0 = time.perf_counter()
+    mstack = vd.get_member_stack("q")
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[scene {card}] member stack from {members} member slabs of "
+          f"{side}^3: {build_ms:.3f} ms (one build: {members} slab copies "
+          f"and torch.stack; host clock, synchronized)")
+    cam, cam2 = config1_camera(), Camera(position=(0.08, 0.27, 0.86))
+    scene = Scene(vd, [cam])
+    p1 = (side // 4, side // 4, side // 2)
+    p2 = (side // 4 + 3, side // 4, side // 2)
+    calc = CorrelationCalculator(field_name="q", reference_point=p1)
+    name = scene.add_calculator(calc)
+    scene.transfer_functions[name] = config1_transfer_function(dev)
+    box = vd.grid.render_box()
+    base = dict(image_size=image_size, box=box, background=(0, 0, 0, 0))
+
+    def render():
+        return scene.render_view(0, image_size=image_size)
+
+    def field():
+        return vd.get_field(name)
+
+    def tf():
+        return scene.tf_for(name)
+
+    def renderers(*nodes):
+        scene.renderers = [{"type": t, "view": 0, "field": name, **kw}
+                           for t, kw in nodes]
+
+    def no_change(i):
+        return None
+
+    renderers(("dvr", {}))
+    times = {}
+    # (a) The reference point moved.
+    times["a"], _ = scene_frame_check(
+        card, "(a) reference point moved", render,
+        lambda i: calc.set_reference_point(*(p2 if i % 2 else p1)),
+        lambda: dvr_shearwarp(correlate_field(mstack, mstack[
+            p2[2], p2[1], p2[0]]), cam, tf(), **base),
+        expect=FAST_PATH)
+    direct_ms = median_ms(lambda: dvr_shearwarp(correlate_field(
+        mstack, mstack[p1[2], p1[1], p1[0]]), cam, tf(), **base))
+    print(f"[scene {card}] (a) the direct call (correlate_field, then "
+          f"dvr_shearwarp at intermediate scale 1.0, as the Scene renders):"
+          f" {direct_ms:.3f} ms (median of 5); the Scene adds "
+          f"{times['a'] - direct_ms:.3f} ms")
+    moves = iter(range(10**6))
+    phase_profile(f"profile scene (a) {card}", lambda: (
+        calc.set_reference_point(*(p2 if next(moves) % 2 else p1)),
+        render()), {
+            "K1 pearson_tiled_kernel": "pearson_tiled_kernel",
+            "K2 classify_cf_kernel": "classify_cf_kernel",
+            "K3 composite_kernel": "composite_kernel",
+            "warp bmm (cuBLAS gemm)": "gemm"},
+        ("K1 pearson_tiled_kernel", "K3 composite_kernel"))
+    # (b) The camera moved within its principal axis.
+    times["b"], _ = scene_frame_check(
+        card, "(b) camera moved, same principal axis", render,
+        lambda i: scene.views.__setitem__(0, cam2 if i % 2 else cam),
+        lambda: dvr_shearwarp(field(), cam2, tf(), **base),
+        expect=("shearwarp_composite",), forbid=("classify_to_cf",
+                                                 "pearson"))
+
+    # (c) The transfer function changed (a new one each frame).
+    def new_tf(i):
+        scene.transfer_functions[name] = TransferFunction.from_colormap(
+            "coolwarm", domain=(-1, 1), device=dev,
+            opacity_points=((0.0, 0.8), (0.5, 0.0), (1.0, 0.8 - 0.1 * (
+                i % 2))))
+
+    times["c"], _ = scene_frame_check(
+        card, "(c) transfer function changed", render, new_tf,
+        lambda: dvr_shearwarp(field(), cam, tf(), **base),
+        expect=("classify_to_cf", "shearwarp_composite"),
+        forbid=("pearson",))
+    # (d) Exact quality.
+    renderers(("dvr", {"quality": "exact"}))
+    times["d"], _ = scene_frame_check(
+        card, "(d) dvr quality exact", render, no_change,
+        lambda: dvr_render_exact(field(), cam, tf(), **base),
+        expect=("raymarch_dvr",), forbid=("shearwarp_composite",))
+    # (e) iso_ray, exact and fast.
+    iso_kw = dict(base, return_depth=True)
+    renderers(("iso_ray", {"iso_value": ISO_VALUE, "quality": "exact"}))
+    times["e exact"], _ = scene_frame_check(
+        card, "(e) iso_ray exact", render, no_change,
+        lambda: iso_render_exact(field(), cam, ISO_VALUE, **iso_kw)[0],
+        expect=("raymarch_iso",))
+    renderers(("iso_ray", {"iso_value": ISO_VALUE}))
+    stages = {}
+    times["e fast"], launches = scene_frame_check(
+        card, "(e) iso_ray fast (iso_fast: torch, no kernel)", render,
+        no_change,
+        lambda: iso_shearwarp(field(), cam, ISO_VALUE, axial_supersample=2,
+                              on_stage=stages.__setitem__, **iso_kw)[0])
+    assert not launches, launches
+    iso_scan_rows_cpu(card, stages, ISO_VALUE)
+    phase_profile(f"profile scene (e) fast iso {card}", render, {
+        "tent products (cuBLAS gemm)": "gemm"},
+        ("tent products (cuBLAS gemm)",))
+    del stages
+    # (f) iso_ray and dvr in one view.
+    renderers(("iso_ray", {"iso_value": ISO_VALUE}), ("dvr", {}))
+
+    def merged():
+        img, depth = iso_shearwarp(field(), cam, ISO_VALUE,
+                                   axial_supersample=2, **iso_kw)
+        return _composite(img, dvr_shearwarp(field(), cam, tf(),
+                                             depth_limit=depth, **base))
+
+    times["f"], _ = scene_frame_check(
+        card, "(f) iso_ray fast + dvr: depth merge, K3 with kstop", render,
+        no_change, merged, expect=("shearwarp_composite",))
+    # (g) A restricted calculator.
+    renderers(("dvr", {}))
+    calc.use_render_restriction = True
+
+    def restrict(i):
+        calc.render_restriction_radius = 0.12 if i % 2 else 0.1
+
+    def restricted():
+        center = restriction_center(calc.reference_point, vd.grid.shape_zyx,
+                                    box)
+        classified = apply_restriction_rgba(
+            classify_volume(field(), tf().lut, tf().domain),
+            restriction_mask(field().shape, box, center, 0.12, device=dev))
+        return dvr_shearwarp(field(), cam, tf(), classified=classified,
+                             **base)
+
+    times["g"], _ = scene_frame_check(
+        card, "(g) restricted calculator", render, restrict, restricted,
+        expect=("classify_volume", "shearwarp_composite"),
+        forbid=("classify_to_cf", "pearson"))
+    # (g) iso: a restricted iso_ray frame marches the NaN-filled slab with
+    # B6, its layout built for the frame; beside it the same call with
+    # the layout built once, which is what a cached layout would save.
+    renderers(("iso_ray", {"iso_value": ISO_VALUE}))
+
+    def restricted_slab():
+        return Scene._restrict_iso_volume(
+            field(), box, scene._active_render_restriction(box))
+
+    times["g iso"], _ = scene_frame_check(
+        card, "(g) restricted calculator, iso_ray (B6, layout per frame)",
+        render, restrict,
+        lambda: iso_render_exact(restricted_slab(), cam, ISO_VALUE,
+                                 **iso_kw)[0],
+        expect=("raymarch_iso",), forbid=("pearson", "classify_volume"))
+    rvol = restricted_slab()
+    kept = ExactPrepared(rvol)
+    kept_ms = median_ms(lambda: iso_render_exact(rvol, cam, ISO_VALUE,
+                                                 prepared=kept, **iso_kw))
+    print(f"[scene {card}] (g) iso with its layout built once: "
+          f"{kept_ms:.3f} ms (median of 5); building it each frame costs "
+          f"the Scene {times['g iso'] - kept_ms:.3f} ms a frame")
+    del rvol, kept
+    calc.use_render_restriction = False
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[scene {card}] {side}^3 x {members}, {image_size[0]}x"
+          f"{image_size[1]}: frames (ms) " + ", ".join(
+              f"{k} {v:.3f}" for k, v in times.items())
+          + f"; the cache holds {vd.cache.used_bytes / 2**30:.2f} GiB in "
+          f"{len(vd.cache)} entries (budget {vd.cache.max_bytes / 2**30:.2f}"
+          f" GiB); peak max_memory_allocated {peak / 2**30:.2f} GiB (the "
+          f"headline stack the slabs were served from included; the "
+          f"member stack alone {mstack.numel() * 4 / 2**30:.2f} GiB)")
+    del scene, vd, mstack
+
+
+def phase_timelag(dev, card: str, errs: dict) -> None:
+    """18. Config 4, then a time-lag store at the headline's grid."""
+    import shutil
+    from pathlib import Path
+
+    from correrender_tpu_torch.app import camera_path
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_transfer_function,
+        config4_timelag_zarr_flythrough, write_zarr_array)
+    from correrender_tpu_torch.app.camera_path import (
+        orbit_path, render_flythrough)
+    from correrender_tpu_torch.app.state import Scene
+    from correrender_tpu_torch.calculators.correlation import (
+        CorrelationCalculator)
+    from correrender_tpu_torch.io import load_volume
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.ops.pearson import pearson
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+    from correrender_tpu_torch.utils.metrics import ssim
+
+    root = Path(__file__).resolve().parent / "build" / "timelag"
+    shutil.rmtree(root, ignore_errors=True)
+    write_png = camera_path.write_png
+    try:
+        # Config 4 at its own size, on the card and on the CPU.
+        res = config4_timelag_zarr_flythrough(str(root / "c4"), device=dev)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # see ROADMAP C
+        res_cpu = config4_timelag_zarr_flythrough(str(root / "c4_cpu"),
+                                                  device="cpu")
+        torch.set_num_threads(threads)
+        worst, least = 0.0, 1.0
+        for i, cam in enumerate(res["cameras"]):
+            t = res["times"][i % len(res["times"])]
+            imgs = []
+            for scene in (res["scene"], res_cpu["scene"]):
+                scene.views[0], scene.current_time = cam, t
+                imgs.append(scene.render_view(0, image_size=(320, 240))
+                            .cpu().numpy())
+            worst = max(worst, float(np.abs(imgs[0] - imgs[1]).max()))
+            least = min(least, ssim(imgs[0], imgs[1]))
+        scene = res["scene"]
+        scene.current_time = len(res["times"])  # a time not yet computed
+        _build.reset_launch_counts()
+        scene.render_view(0, image_size=(320, 240))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        print(f"[config4 {card}] {res['zarr_shape']} zlib Zarr, time lag 2, "
+              f"orbit_path(4) at 320x240: warm pass "
+              f"{res['compile_pass_ms']:.1f} ms, timed pass "
+              f"{res['total_ms']:.1f} ms ({res['ms_per_frame']:.1f} ms a "
+              f"frame, PNGs included; host clock); a frame's launches "
+              f"{launches}; card vs CPU (1 thread) over the "
+              f"{len(res['cameras'])} frames: max-abs {worst:.3e} (bar "
+              f"{MAX_ABS_FRAME}), min SSIM {least:.6f} (bar "
+              f"{MIN_SSIM_FRAME})")
+        assert all(launches.get(k, 0) >= 1 for k in FAST_PATH), launches
+        assert worst <= MAX_ABS_FRAME and least >= MIN_SSIM_FRAME
+        del res, res_cpu, scene
+
+        # The time-lag store: 250^3 x 40 steps, one member, float32.
+        side, steps, lag = HEADLINE_SIDE, TIMELAG_STEPS, TIMELAG_LAG
+        gen = torch.Generator(device=dev).manual_seed(11)
+        t0 = time.perf_counter()
+        series = synth_box_stack(side, side, side, steps, gen, dev)
+        host = series.permute(3, 0, 1, 2).contiguous().cpu().numpy()
+        del series
+        store = root / "timelag.zarr"
+        write_zarr_array(str(store / "q"), host, (1, side, side, side),
+                         compressor=None)
+        gbytes = host.nbytes / 1e9
+        del host
+        write_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        vd = load_volume(str(store), device=dev)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        assert (vd.grid.ts, vd.grid.es) == (steps, 1), vd.grid
+        t0 = time.perf_counter()
+        for t in range(steps):
+            vd.get_field("q", t, 0)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        tstack = vd.get_time_stack("q", 0)
+        torch.cuda.synchronize()
+        tstack_ms = (time.perf_counter() - t0) * 1e3
+        p = (side // 4, side // 4, side // 2)
+        cam = config1_camera()
+        scene = Scene(vd, [cam])
+        calc = CorrelationCalculator(field_name="q", ensemble_mode=False,
+                                     time_lag=lag, reference_point=p)
+        name = scene.add_calculator(calc)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        field = vd.get_field(name, 0, 0)
+        end.record()
+        torch.cuda.synchronize()
+        first_ms = start.elapsed_time(end)
+        field_ms = median_ms(lambda: calc.compute(0, 0))
+        n = steps - lag
+        idx = torch.arange(0, side**3, GRID_CHECK_STEP, device=dev)
+        flat = tstack.reshape(-1, steps)
+        want = pearson(tstack[p[2], p[1], p[0], lag:].double(),
+                       flat[idx, :n].double(), dtype=torch.float64)
+        err = max_abs(field.reshape(-1)[idx], want)
+        print(f"[timelag {card}] store {side}^3 x {steps} steps f32, "
+              f"uncompressed chunks of one step ({gbytes:.2f} GB; drawn and "
+              f"written in {write_s:.1f} s): load_volume {open_ms:.3f} ms "
+              f"(metadata), {steps} slabs read and uploaded {load_ms:.1f} ms, "
+              f"time stack {tstack_ms:.3f} ms; field (time lag {lag}, n = "
+              f"{n}) first {first_ms:.3f} ms, then {field_ms:.3f} ms (median "
+              f"of 5); max|field - f64| {err:.3e} over every "
+              f"{GRID_CHECK_STEP}th voxel (bar {ATOL_PEARSON})")
+        assert err <= ATOL_PEARSON
+        errs["pearson"] = max(errs["pearson"], err)
+        # K1 keeps its tiled regime for the lag windows: correlate_field
+        # copies the flattened window into a fresh buffer, whose base is
+        # 16-byte aligned (csrc/pearson.cu:356-358 picks the regime from
+        # that and n <= 2048). The inputs each lag hands K1 are recorded,
+        # and one profiler window over both lags must name only the
+        # tiled kernel.
+        from torch.profiler import ProfilerActivity, profile
+
+        from correrender_tpu_torch.calculators import correlation
+
+        handed = []
+        pearson_cuda = correlation.pearson_cuda
+
+        def recording(series, ref_):
+            handed.append((series.is_contiguous(),
+                           series.data_ptr() % 16 == 0, series.shape[-1]))
+            return pearson_cuda(series, ref_)
+
+        calcs = [CorrelationCalculator(field_name="q", ensemble_mode=False,
+                                       time_lag=lag_, reference_point=p)
+                 for lag_ in (lag, -lag)]
+        for c in calcs:
+            c.bind(vd)
+            c.compute(0, 0)
+        torch.cuda.synchronize()
+        correlation.pearson_cuda = recording
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for c in calcs:
+                    for _ in range(10):
+                        c.compute(0, 0)
+                torch.cuda.synchronize()
+        finally:
+            correlation.pearson_cuda = pearson_cuda
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "pearson" in e.key}
+        print(f"[timelag {card}] time lags +{lag} and -{lag}: K1 handed "
+              f"(contiguous, 16-byte aligned, n) {sorted(set(handed))} in "
+              f"{len(handed)} calls; the profiler names {kernels}")
+        assert handed and all(c and al and n <= 2048 for c, al, n in handed)
+        assert any("pearson_tiled_kernel" in k for k in kernels), kernels
+        assert not any("pearson_direct_kernel" in k for k in kernels), (
+            kernels)
+        # The flythrough, stepping the time.
+        scene.transfer_functions[name] = config1_transfer_function(dev)
+        scene.add_renderer("dvr", field=name)
+        state = {"in_flight": 0, "most": 0, "computes": 0, "write_s": 0.0}
+        render_view, compute = scene.render_view, calc.compute
+
+        def counted_render(view, image_size):
+            state["in_flight"] += 1
+            state["most"] = max(state["most"], state["in_flight"])
+            return render_view(view, image_size=image_size)
+
+        def counted_write(path, img):
+            state["in_flight"] -= 1
+            t_write = time.perf_counter()
+            write_png(path, img)  # fetches the frame, then encodes it
+            state["write_s"] += time.perf_counter() - t_write
+
+        def counted_compute(t, e):
+            state["computes"] += 1
+            return compute(t, e)
+
+        scene.render_view = counted_render
+        camera_path.write_png = counted_write
+        calc.compute = counted_compute
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        # From time step 1: step 0's field was computed above.
+        files = render_flythrough(scene, orbit_path(FLY_FRAMES),
+                                  str(root / "fly"), image_size=HEADLINE_IMAGE,
+                                  time_indices=list(range(1, n)))
+        torch.cuda.synchronize()
+        fly_ms = (time.perf_counter() - t0) * 1e3
+        camera_path.write_png = write_png
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated(dev)
+        frame_ms = fly_ms / FLY_FRAMES
+        write_ms = 1e3 * state["write_s"] / FLY_FRAMES
+        print(f"[timelag {card}] render_flythrough of orbit_path"
+              f"({FLY_FRAMES}) at {HEADLINE_IMAGE[0]}x{HEADLINE_IMAGE[1]}, "
+              f"a time step a frame: {fly_ms:.1f} ms ({frame_ms:.1f} ms a "
+              f"frame, PNG encoding included; host clock; waiting for, "
+              f"fetching and encoding {write_ms:.1f} ms a frame of it); "
+              f"launches {launches}; the field computed {state['computes']} "
+              f"times "
+              f"(cached per time step, as in JAX); most frames in flight "
+              f"{state['most']}; peak max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB")
+        assert len(files) == FLY_FRAMES and state["in_flight"] == 0
+        assert state["most"] <= camera_path.MAX_IN_FLIGHT
+        assert state["computes"] == FLY_FRAMES
+        assert all(launches.get(k, 0) == FLY_FRAMES for k in FAST_PATH), (
+            launches)
+        del scene, vd, tstack, field, flat
+    finally:
+        camera_path.write_png = write_png
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     from correrender_tpu_torch.utils.fixtures import synth_box_stack
 
@@ -1955,6 +2527,7 @@ def main() -> None:
     phase_kernels_iso(dev, errs)
     phase_kernels_moments(dev, errs)
     phase_config1(dev)
+    phase_timelag(dev, card, errs)
     gen = torch.Generator(device=dev).manual_seed(0)
     side = HEADLINE_SIDE
     stack = synth_box_stack(side, side, side, HEADLINE_MEMBERS, gen, dev)
@@ -1982,7 +2555,9 @@ def main() -> None:
         ("B6 raymarch_iso_kernel",))
     del frame, exact_frame, iso_frame
     phase_measures_grid(dev, card, errs, stack, stats)
+    phase_scene(dev, card, stack)
     del stack
+    phase_iso_fast_config1(dev, card)
     phase_eye_inside(dev, card)
     phase_configs23(dev, card, errs)
     phase_members(dev, card, errs, stats)

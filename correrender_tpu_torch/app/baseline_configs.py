@@ -1,17 +1,26 @@
-"""BASELINE configurations 1-3 on the port.
+"""BASELINE configurations 1-4 on the port.
 
 Counterparts of ``correrender_tpu/app/baseline_configs.py``
 (``config1_synth_box_pearson_dvr``, ``config2_rank_correlations``,
-``config3_mutual_information``): the same grids, members, measures and,
-for config 1, camera, transfer function and image size. Timed with CUDA
+``config3_mutual_information``, ``config4_timelag_zarr_flythrough``):
+the same grids, members, measures and, for configs 1 and 4, cameras,
+transfer function and image sizes. Configs 1-3 are timed with CUDA
 events, so each needs a CUDA device and refuses any other. Configs 2
 and 3 return their stack, reference series and fields beside the times,
-so a caller can check the very fields that were timed.
+so a caller can check the very fields that were timed. Config 4 times
+its flythrough passes on the host clock (it writes PNGs), synchronizing
+the card first, and runs on the CPU too.
 """
 
 from __future__ import annotations
 
+import itertools
+import json
+import os
 import statistics
+import tempfile
+import time
+import zlib
 
 import numpy as np
 import torch
@@ -160,3 +169,108 @@ def config3_mutual_information(grid=(48, 48, 24), members=500,
         out[f"{key}_ms"] = timed[f"{measure}_ms"]
         out[f"{key}_voxels_per_s"] = xs * ys * zs / (out[f"{key}_ms"] / 1e3)
     return out
+
+
+def write_zarr_array(path, data: np.ndarray, chunks, compressor="zlib"):
+    """Write ``data`` as a Zarr v2 array directory (C order, chunks
+    zero-padded at the edges): zlib-compressed, as the JAX package's
+    config 4 writes it, or raw with ``compressor=None``."""
+    os.makedirs(path, exist_ok=True)
+    meta = {
+        "zarr_format": 2,
+        "shape": list(data.shape),
+        "chunks": list(chunks),
+        "dtype": data.dtype.str,
+        "compressor": {"id": compressor} if compressor else None,
+        "fill_value": 0,
+        "order": "C",
+        "filters": None,
+    }
+    with open(os.path.join(path, ".zarray"), "w") as f:
+        json.dump(meta, f)
+    grids = [range(-(-s // c)) for s, c in zip(data.shape, chunks)]
+    for idx in itertools.product(*grids):
+        sl = tuple(slice(i * c, (i + 1) * c) for i, c in zip(idx, chunks))
+        chunk = data[sl]
+        chunk = np.pad(chunk, [(0, c - s) for c, s in zip(chunks,
+                                                           chunk.shape)])
+        raw = chunk.tobytes()
+        with open(os.path.join(path, ".".join(str(i) for i in idx)),
+                  "wb") as f:
+            f.write(zlib.compress(raw) if compressor else raw)
+
+
+def config4_ensemble() -> np.ndarray:
+    """Config 4's time-dependent ensemble ``(E=6, T=8, Z=12, Y=24,
+    X=24)``, drawn from numpy's ``default_rng(1)`` exactly as the JAX
+    package draws it."""
+    rng = np.random.default_rng(1)
+    base = rng.normal(size=(8, 12, 24, 24)).astype(np.float32)
+    return np.stack(
+        [np.roll(base, e, axis=0) + 0.1 * rng.normal(size=base.shape)
+         for e in range(6)]
+    ).astype(np.float32)
+
+
+def config4_timelag_zarr_flythrough(tmp_dir=None, device="cuda"):
+    """Time-lag correlation on a Zarr ensemble and an animated DVR
+    flythrough: the ensemble (:func:`config4_ensemble`) written as a
+    zlib Zarr store, loaded on ``device``, a time-mode Pearson
+    calculator with ``time_lag=2`` at (12, 12, 6), and ``orbit_path(4)``
+    at 320×240 stepping the time, once to warm up and once timed.
+
+    Returns the timings (host clock; the card is synchronized before each
+    reading) beside the ``scene``, its ``cameras`` and ``times``, and the
+    PNG ``frames`` of the timed pass, so a caller can render the same
+    frames again."""
+    from correrender_tpu_torch.app.camera_path import (
+        orbit_path,
+        render_flythrough,
+    )
+    from correrender_tpu_torch.app.state import Scene
+    from correrender_tpu_torch.calculators.correlation import (
+        CorrelationCalculator,
+    )
+    from correrender_tpu_torch.io import load_volume
+
+    device = torch.device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    tmp_dir = tmp_dir or tempfile.mkdtemp()
+    store = os.path.join(tmp_dir, "ens.zarr")
+    data = config4_ensemble()
+    write_zarr_array(os.path.join(store, "q"), data, (2, 4, 12, 24, 24))
+
+    vd = load_volume(store, device=device)
+    scene = Scene(vd)
+    calc = CorrelationCalculator(
+        field_name="q", measure="pearson", reference_point=(12, 12, 6),
+        ensemble_mode=False, time_lag=2)
+    name = scene.add_calculator(calc)
+    scene.add_renderer("dvr", field=name)
+    times = list(range(vd.grid.ts - 2))
+    cameras = orbit_path(4)
+    passes = {}
+    for label in ("warm", "fly"):
+        sync()
+        t0 = time.perf_counter()
+        frames = render_flythrough(scene, cameras,
+                                   os.path.join(tmp_dir, label),
+                                   image_size=(320, 240), time_indices=times)
+        sync()
+        passes[label] = (time.perf_counter() - t0) * 1e3
+    return {
+        "config": "timelag_zarr_flythrough",
+        "zarr_shape": list(data.shape),
+        "device": str(device),
+        "frames": frames,
+        "compile_pass_ms": passes["warm"],
+        "total_ms": passes["fly"],
+        "ms_per_frame": passes["fly"] / len(frames),
+        "scene": scene,
+        "cameras": cameras,
+        "times": times,
+    }

@@ -1,0 +1,543 @@
+"""Headless scenes and JSON app-state files.
+
+Counterpart of ``correrender_tpu/app/state.py``: a ``Scene`` holds a
+:class:`~correrender_tpu_torch.core.fields.VolumeData`, its calculators,
+renderer settings and per-view cameras, and composites a view's
+renderers into one frame on the volume's device. The state-file schema
+is the JAX package's own (``save_state`` writes the same document):
+
+```json
+{
+  "version": 1,
+  "dataset": {"filename": ..., or "catalog": ..., "name": ...},
+  "views": [{"camera": {"position": [..], "look_at": [..], "fovy": ..}}],
+  "calculators": [{"type": "<CALCULATOR_TYPE_IDS>", ...settings}],
+  "renderers": [{"type": "<RENDERING_MODE_NAMES_ID>", "view": 0,
+                 ...settings}]
+}
+```
+
+Ported renderers: ``dvr`` (shear-warp, its restricted and depth-clipped
+forms, and the exact marcher), ``iso_ray`` (the shear-warp first hit of
+``render/iso_fast.py``, or the exact marcher) and ``iso_raster``. What
+the port cannot draw yet raises ``NotImplementedError`` naming its
+ROADMAP item: the slice, outline and world-map renderers, reference-point
+markers and legends (A.5), diagram overlays (A.10), and reference-app
+state files in either direction (A.6).
+"""
+
+from __future__ import annotations
+
+import json
+from collections import OrderedDict
+from typing import Optional
+
+import numpy as np
+import torch
+
+from correrender_tpu_torch.calculators.base import calculator_from_settings
+from correrender_tpu_torch.render.camera import Camera
+from correrender_tpu_torch.render.classify import classify_volume
+from correrender_tpu_torch.render.dvr_fast import (
+    dvr_shearwarp,
+    prepare_shearwarp,
+    shearwarp_camera_key,
+    shearwarp_viable,
+)
+from correrender_tpu_torch.render.iso import iso_render
+from correrender_tpu_torch.render.iso_fast import (
+    iso_shearwarp,
+    prepare_iso_shearwarp,
+)
+from correrender_tpu_torch.render.raymarch_exact import (
+    ExactPrepared,
+    dvr_render_exact,
+    iso_render_exact,
+)
+from correrender_tpu_torch.render.restriction import (
+    apply_restriction_rgba,
+    restriction_center,
+    restriction_mask,
+)
+from correrender_tpu_torch.render.tf import (
+    TransferFunction,
+    default_opacity_points,
+)
+
+#: Reference RenderingModes.hpp:62-73.
+RENDERING_MODE_IDS = [
+    "dvr",
+    "iso_ray",
+    "iso_raster",
+    "domain_outline",
+    "slice",
+    "world_map",
+    "diagram",
+    "scatter_plot",
+    "correlation_matrix",
+    "time_series_correlation",
+    "distribution_similarity",
+]
+
+#: Renderers the port has not ported yet, with their ROADMAP item.
+_NOT_PORTED_RENDERERS = {"slice": "A.5", "domain_outline": "A.5",
+                         "world_map": "A.5"}
+
+#: Keys that mark a state file saved by the reference app.
+_REFERENCE_MARKERS = ("global_camera", "dock_data", "window_size",
+                      "volume_data")
+
+
+def _camera_from_json(node: dict) -> Camera:
+    kwargs = {}
+    if "position" in node:
+        kwargs["position"] = tuple(node["position"])
+    if "look_at" in node:
+        kwargs["look_at_point"] = tuple(node["look_at"])
+    if "up" in node:
+        kwargs["up"] = tuple(node["up"])
+    if "fovy" in node:
+        kwargs["fovy"] = float(node["fovy"])
+    return Camera(**kwargs)
+
+
+def _camera_to_json(cam: Camera) -> dict:
+    return {
+        "position": list(cam.position),
+        "look_at": list(cam.look_at_point),
+        "up": list(cam.up),
+        "fovy": cam.fovy,
+    }
+
+
+def _is_reference_state(doc: dict) -> bool:
+    """True for a state file saved by the reference app (the JAX
+    package's ``state_ref.is_reference_state``)."""
+    if any(k in doc for k in _REFERENCE_MARKERS):
+        return True
+    nodes = list(doc.get("renderers") or []) + list(
+        doc.get("calculators") or [])
+    return any(isinstance(n, dict) and isinstance(n.get("state"), dict)
+               for n in nodes)
+
+
+def _restriction_signature(restriction):
+    if restriction is None:
+        return None
+    center, radius, metric = restriction
+    return (tuple(float(c) for c in center), radius, metric)
+
+
+class Scene:
+    """A VolumeData, its calculators, renderer settings and per-view
+    cameras."""
+
+    DIAGRAM_TYPES = ("diagram", "scatter_plot", "correlation_matrix",
+                     "time_series_correlation", "distribution_similarity")
+
+    #: Resident layouts kept by :meth:`render_view` (an LRU): one entry
+    #: thrashes with two fast renderers or two views.
+    _PREPARED_CACHE_CAP = 8
+
+    def __init__(self, volume_data, views=None):
+        self.volume_data = volume_data
+        self.views = views or [Camera()]
+        self.renderers: list[dict] = []
+        self.transfer_functions: dict[str, TransferFunction] = {}
+        self.dataset_info: Optional[dict] = None
+        self.current_time = 0
+        self.current_member = 0
+        # Rows of view indices (the reference persists its dock layout,
+        # MainAppState.cpp:131); kept for the state file.
+        self.dock_layout: list[list[int]] = [list(range(len(self.views)))]
+        # Named camera bookmarks (MainApp.cpp:2045): name → Camera.
+        self.camera_checkpoints: dict[str, Camera] = {}
+        # Resident layouts: shear-warp DVR and iso slices, exact-marcher
+        # layouts. Keys hold the field's dirty epoch and the TF's uid.
+        self._prepared_cache: OrderedDict = OrderedDict()
+
+    # -- construction ------------------------------------------------------
+
+    def add_calculator(self, calculator):
+        self.volume_data.add_calculator(calculator)
+        return calculator.output_name
+
+    def add_renderer(self, type_id: str, view: int = 0, **settings):
+        if type_id not in RENDERING_MODE_IDS:
+            raise ValueError(f"unknown renderer type {type_id!r}; known: "
+                             f"{RENDERING_MODE_IDS}")
+        self.renderers.append({"type": type_id, "view": view, **settings})
+
+    def save_camera_checkpoint(self, name: str, view: int = 0):
+        """Bookmark the view's current camera under ``name``."""
+        self.camera_checkpoints[name] = self.views[view]
+
+    def restore_camera_checkpoint(self, name: str, view: int = 0):
+        """Restore a bookmarked camera into ``view``."""
+        if name not in self.camera_checkpoints:
+            raise KeyError(f"no camera checkpoint {name!r}; saved: "
+                           f"{sorted(self.camera_checkpoints)}")
+        self.views[view] = self.camera_checkpoints[name]
+
+    def tf_for(self, field_name: str) -> TransferFunction:
+        """The field's transfer function; by default coolwarm over the
+        field's range at the current time and member."""
+        if field_name not in self.transfer_functions:
+            lo, hi = self.volume_data.get_min_max(
+                field_name, self.current_time, self.current_member)
+            self.transfer_functions[field_name] = (
+                TransferFunction.from_colormap(
+                    "coolwarm", domain=(lo, hi),
+                    opacity_points=default_opacity_points(lo, hi),
+                    device=self.volume_data.device))
+        return self.transfer_functions[field_name]
+
+    def _prep_cache_get(self, key):
+        prep = self._prepared_cache.get(key)
+        if prep is not None:
+            self._prepared_cache.move_to_end(key)
+        return prep
+
+    def _prep_cache_put(self, key, prep):
+        self._prepared_cache[key] = prep
+        self._prepared_cache.move_to_end(key)
+        while len(self._prepared_cache) > self._PREPARED_CACHE_CAP:
+            self._prepared_cache.popitem(last=False)
+
+    def _exact_prepared(self, vol, field):
+        """The exact marchers' resident layouts of a field's slab
+        (``render/raymarch_exact.py::ExactPrepared``), in the LRU. Keyed
+        on the slab alone: the restriction is not part of the layout."""
+        key = ("exact_march", field, self.current_time, self.current_member,
+               self.volume_data.dirty_epoch(field))
+        prep = self._prep_cache_get(key)
+        if prep is None:
+            prep = ExactPrepared(vol)
+            self._prep_cache_put(key, prep)
+        return prep
+
+    # -- rendering ---------------------------------------------------------
+
+    def _active_render_restriction(self, box):
+        """(center, radius, metric) of the last calculator with an active
+        render restriction, else None: the last to set it wins
+        (VolumeData.hpp:424-430)."""
+        for calc in reversed(self.volume_data.calculators.values()):
+            if getattr(calc, "use_render_restriction", False):
+                center = restriction_center(calc.reference_point,
+                                            self.volume_data.grid.shape_zyx,
+                                            box)
+                return (center, float(calc.render_restriction_radius),
+                        str(calc.render_restriction_metric))
+        return None
+
+    @staticmethod
+    def _restrict_iso_volume(vol, box, restriction):
+        """NaN outside the restriction ball: both iso marchers take a NaN
+        sample as no crossing, so surfaces stop at the ball."""
+        if restriction is None:
+            return vol
+        center, radius, metric = restriction
+        mask = restriction_mask(vol.shape, box, center, radius, metric,
+                                device=vol.device)
+        return torch.where(mask > 0, vol, torch.nan)
+
+    def _check_portable(self, view, show_reference_points, show_legend,
+                        show_diagram_overlays):
+        """Raise for what the port cannot draw yet, before any work."""
+        if show_reference_points:
+            raise NotImplementedError(
+                "show_reference_points: the reference-point marker "
+                "(render/picking.py) is not ported yet (ROADMAP A.5)")
+        if show_legend:
+            raise NotImplementedError(
+                "show_legend: the colour legend (render/legend.py) is not "
+                "ported yet (ROADMAP A.5)")
+        for r in self.renderers:
+            if r["view"] != view or r.get("hidden"):
+                continue
+            if r["type"] in _NOT_PORTED_RENDERERS:
+                raise NotImplementedError(
+                    f"the {r['type']!r} renderer is not ported yet (ROADMAP "
+                    f"{_NOT_PORTED_RENDERERS[r['type']]})")
+            if (show_diagram_overlays and r["type"] in self.DIAGRAM_TYPES
+                    and r.get("overlay", True)):
+                raise NotImplementedError(
+                    f"diagram overlay {r['type']!r}: the diagrams are not "
+                    "ported yet (ROADMAP A.9-A.10); pass "
+                    "show_diagram_overlays=False")
+
+    def _render_iso(self, r, field, cam, box, restriction, image_size,
+                    fast_dvr):
+        """One ``iso_ray`` renderer: (rgba, depth)."""
+        vd = self.volume_data
+        raw_vol = vd.get_field(field, self.current_time, self.current_member)
+        vol = self._restrict_iso_volume(raw_vol, box, restriction)
+        closed = bool(r.get("closed_surface", False))
+        color = r.get("color", (0.9, 0.4, 0.2, 1.0))
+        iso_value = r.get("iso_value", 0.5)
+        mode = r.get("intersection_mode", "bisection")
+        # A restricted slab is NaN outside the ball. The fast renderer's
+        # tent products spread a NaN over its whole slab row (0 · NaN is
+        # NaN) and find no crossing at all, so a restricted frame takes the
+        # exact marcher, which reads a NaN sample as no crossing (the JAX
+        # Scene draws an empty frame here: ROADMAP C).
+        if (fast_dvr and restriction is None and vd.model_matrix is None
+                and not closed and r.get("quality") != "exact"
+                and mode == "bisection" and shearwarp_viable(cam, box)):
+            # Default 2× axial supersampling, paid once in the layout.
+            ss = int(r.get("axial_supersample", 2))
+            pkey = ("iso", field, self.current_time, self.current_member,
+                    vd.dirty_epoch(field), shearwarp_camera_key(cam), ss)
+            prep = self._prep_cache_get(pkey)
+            if prep is None:
+                prep = prepare_iso_shearwarp(vol, cam, box=box,
+                                             axial_supersample=ss)
+                self._prep_cache_put(pkey, prep)
+            return iso_shearwarp(vol, cam, iso_value, surface_color=color,
+                                 image_size=image_size, box=box,
+                                 background=(0, 0, 0, 0), prepared=prep,
+                                 axial_supersample=ss, return_depth=True)
+        # A restricted slab is NaN outside the ball, so its layout is
+        # built for the frame and not cached; the LRU holds the layouts
+        # of field slabs only, shared with the exact DVR renderer.
+        prepared = (self._exact_prepared(vol, field) if restriction is None
+                    else None)
+        return iso_render_exact(vol, cam, iso_value, surface_color=color,
+                                image_size=image_size, box=box,
+                                background=(0, 0, 0, 0),
+                                model_matrix=vd.model_matrix,
+                                closed_surface=closed,
+                                intersection_mode=mode, return_depth=True,
+                                prepared=prepared)
+
+    def _render_dvr(self, r, field, cam, box, restriction, image_size,
+                    fast_dvr, scene_depth):
+        """One ``dvr`` renderer, clipped against the opaque depth."""
+        vd = self.volume_data
+        vol = vd.get_field(field, self.current_time, self.current_member)
+        tf = self.tf_for(field)
+        kwargs = dict(image_size=image_size, box=box,
+                      attenuation=r.get("attenuation", 100.0),
+                      background=(0, 0, 0, 0))
+        step_size = float(r.get("step_size", 0.1))
+        nan_mode = r.get("nan_mode", "ignore")
+        # Shear-warp composites one slice a voxel plane; other step
+        # sizes, NaN modes, model matrices, "exact" quality and eye-inside
+        # cameras take the exact marcher, which carries the restriction.
+        use_fast = (fast_dvr and vd.model_matrix is None
+                    and nan_mode == "ignore" and step_size == 0.1
+                    and r.get("quality") != "exact"
+                    and shearwarp_viable(cam, box))
+        if not use_fast:
+            return dvr_render_exact(
+                vol, cam, tf, restriction=restriction,
+                model_matrix=vd.model_matrix, nan_mode=nan_mode,
+                voxel_step=step_size, depth_limit=scene_depth,
+                prepared=self._exact_prepared(vol, field), **kwargs)
+        # The field's slab (with its dirty epoch) and the TF's uid key
+        # the layout. The JAX package also reuses a transposed copy of
+        # the field across TF changes; here K2 reads the field through
+        # strided views, so there is nothing to reuse.
+        pkey = ((field, self.current_time, self.current_member,
+                 vd.dirty_epoch(field)), tf.uid, shearwarp_camera_key(cam),
+                _restriction_signature(restriction))
+        prep = self._prep_cache_get(pkey)
+        if prep is None:
+            classified = None
+            if restriction is not None:
+                center, radius, metric = restriction
+                classified = apply_restriction_rgba(
+                    classify_volume(vol, tf.lut, tf.domain),
+                    restriction_mask(vol.shape, box, center, radius, metric,
+                                     device=vol.device))
+            prep = prepare_shearwarp(vol, tf, cam, classified=classified)
+            self._prep_cache_put(pkey, prep)
+        return dvr_shearwarp(vol, cam, tf, prepared=prep,
+                             depth_limit=scene_depth, **kwargs)
+
+    def render_view(self, view: int = 0, image_size=(512, 512),
+                    fast_dvr: bool = True, show_reference_points=False,
+                    show_legend: bool = False,
+                    show_diagram_overlays: bool = True) -> torch.Tensor:
+        """Composite the view's renderers over a transparent base with a
+        shared depth buffer (the reference's SceneData.hpp): opaque
+        renderers (isosurfaces) z-merge by eye distance, then DVR clips
+        against the merged depth. Returns ``(H, W, 4)`` straight-alpha
+        RGBA on the volume's device."""
+        self._check_portable(view, show_reference_points, show_legend,
+                             show_diagram_overlays)
+        cam = self.views[view]
+        vd = self.volume_data
+        box = vd.grid.render_box()
+        restriction = self._active_render_restriction(box)
+        image = None
+        opaque = []
+        dvr_jobs = []
+        for r in self.renderers:
+            if (r["view"] != view or r.get("hidden")
+                    or r["type"] in self.DIAGRAM_TYPES):
+                continue
+            field = r.get("field", vd.field_names[0])
+            if r["type"] == "dvr":
+                dvr_jobs.append((r, field))
+            elif r["type"] == "iso_ray":
+                opaque.append(self._render_iso(r, field, cam, box,
+                                               restriction, image_size,
+                                               fast_dvr))
+            elif r["type"] == "iso_raster":
+                vol = self._restrict_iso_volume(
+                    vd.get_field(field, self.current_time,
+                                 self.current_member), box, restriction)
+                opaque.append(iso_render(
+                    vol, cam, r.get("iso_value", 0.5), image_size=image_size,
+                    box=box, background=(0, 0, 0, 0),
+                    model_matrix=vd.model_matrix, return_depth=True))
+
+        merged, scene_depth = _depth_merge(opaque)
+        if merged is not None:
+            image = _composite(image, merged)
+        for r, field in dvr_jobs:
+            image = _composite(image, self._render_dvr(
+                r, field, cam, box, restriction, image_size, fast_dvr,
+                scene_depth))
+        if image is None:
+            image = torch.zeros(tuple(image_size[::-1]) + (4,),
+                                dtype=torch.float32, device=vd.device)
+        return image
+
+    # -- state files -------------------------------------------------------
+
+    def save_state(self, path: str, dataset: Optional[dict] = None,
+                   reference_format: bool = False):
+        """Write the scene as JSON in the framework's schema (the JAX
+        package's document for the same scene)."""
+        if reference_format:
+            raise NotImplementedError(
+                "reference_format: the reference-app state exporter "
+                "(app/state_ref.py) is not ported yet (ROADMAP A.6)")
+        doc = {
+            "version": 1,
+            "dataset": dataset or self.dataset_info or {},
+            "views": [{"camera": _camera_to_json(c)} for c in self.views],
+            "calculators": [
+                {
+                    "type": c.type_id,
+                    **({"continuous_recompute": True}
+                       if getattr(c, "continuous_recompute", False) else {}),
+                    **_jsonable(c.get_settings()),
+                }
+                for c in self.volume_data.calculators.values()
+            ],
+            "renderers": _jsonable(self.renderers),
+            "transfer_functions": {
+                name: tf.to_dict()
+                for name, tf in self.transfer_functions.items()
+            },
+            "current_time": self.current_time,
+            "current_member": self.current_member,
+            "dock_layout": self.dock_layout,
+            "camera_checkpoints": {
+                name: _camera_to_json(cam)
+                for name, cam in self.camera_checkpoints.items()
+            },
+        }
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=2)
+
+    @classmethod
+    def load_state(cls, path: str, volume_data=None, device="cuda"):
+        """Load a state file of the framework's schema. Without
+        ``volume_data`` the file's dataset (a filename or a catalog entry)
+        is opened on ``device``. A state file saved by the reference app
+        raises (its importer is ROADMAP A.6)."""
+        from correrender_tpu_torch.io import load_catalog, load_volume
+        from correrender_tpu_torch.io.catalog import open_dataset
+
+        with open(path) as f:
+            doc = json.load(f)
+        if _is_reference_state(doc):
+            raise NotImplementedError(
+                f"{path}: a reference-app state file; its importer "
+                "(app/state_ref.py) is not ported yet (ROADMAP A.6)")
+        if volume_data is None:
+            ds = doc.get("dataset", {})
+            if "catalog" in ds:
+                entries = load_catalog(ds["catalog"])
+                match = [e for e in entries if e.name == ds.get("name")]
+                volume_data = open_dataset(match[0] if match else entries[0],
+                                           device=device)
+            elif "filename" in ds:
+                volume_data = load_volume(ds["filename"], device=device)
+            else:
+                raise ValueError(
+                    "state file has no dataset and none was provided")
+        views = [_camera_from_json(v.get("camera", {}))
+                 for v in doc.get("views", [{}])]
+        scene = cls(volume_data, views)
+        scene.dataset_info = doc.get("dataset")
+        scene.current_time = doc.get("current_time", 0)
+        scene.current_member = doc.get("current_member", 0)
+        for node in doc.get("calculators", []):
+            node = dict(node)
+            scene.add_calculator(
+                calculator_from_settings(node.pop("type"), node))
+        for node in doc.get("renderers", []):
+            node = dict(node)
+            scene.add_renderer(node.pop("type"), **node)
+        for name, tf_state in doc.get("transfer_functions", {}).items():
+            scene.transfer_functions[name] = TransferFunction.from_dict(
+                tf_state, device=volume_data.device)
+        if "dock_layout" in doc:
+            scene.dock_layout = [[int(i) for i in row]
+                                 for row in doc["dock_layout"]]
+        for name, node in doc.get("camera_checkpoints", {}).items():
+            scene.camera_checkpoints[name] = _camera_from_json(node)
+        return scene
+
+
+def _composite(base, over):
+    """Straight-alpha OVER of a new layer on top of the base image."""
+    if base is None:
+        return over
+    a = over[..., 3:4]
+    rgb = over[..., :3] * a + base[..., :3] * (1 - a)
+    alpha = a[..., 0] + base[..., 3] * (1 - a[..., 0])
+    return torch.cat([rgb, alpha[..., None]], dim=-1)
+
+
+def _depth_merge(layers):
+    """Z-merge ``[(rgba, depth)]`` opaque layers per pixel: sorted by
+    depth (stable), then folded back to front with premultiplied OVER,
+    so the result does not depend on the layers' order. Depth is +inf
+    where a layer is empty. Returns (rgba | None, depth | None)."""
+    if not layers:
+        return None, None
+    if len(layers) == 1:
+        return layers[0]
+    rgba = torch.stack([im for im, _ in layers])  # (N, H, W, 4)
+    depth = torch.stack([d for _, d in layers])  # (N, H, W)
+    order = torch.argsort(depth, dim=0, stable=True)
+    rgba = torch.take_along_dim(rgba, order[..., None], dim=0)
+    a = rgba[-1][..., 3:4]
+    rgbp = rgba[-1][..., :3] * a
+    alpha = a[..., 0]
+    for i in range(rgba.shape[0] - 2, -1, -1):  # toward the camera
+        top = rgba[i]
+        ta = top[..., 3:4]
+        rgbp = top[..., :3] * ta + rgbp * (1 - ta)
+        alpha = ta[..., 0] + alpha * (1 - ta[..., 0])
+    rgb = rgbp / torch.clamp_min(alpha[..., None], 1e-9)
+    return torch.cat([rgb, alpha[..., None]], dim=-1), depth.amin(dim=0)
+
+
+def _jsonable(obj):
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    return obj

@@ -122,6 +122,19 @@ def ray_dirs_affine(camera: Camera, width: int, height: int):
     return d00, ex, ey
 
 
+def orbit_camera(theta: float, phi: float, radius: float = 0.8,
+                 center=(0.0, 0.0, 0.0), **kwargs) -> Camera:
+    """Camera on a sphere around ``center``, looking at it (flythrough
+    paths)."""
+    cx, cy, cz = center
+    pos = (
+        cx + radius * math.cos(phi) * math.sin(theta),
+        cy + radius * math.sin(phi),
+        cz + radius * math.cos(phi) * math.cos(theta),
+    )
+    return Camera(position=pos, look_at_point=center, **kwargs)
+
+
 def default_render_box(shape_zyx):
     """The default render AABB for a ``(Z, Y, X)`` volume: longest side
     normalized to 0.5 world units, centred at the origin

@@ -11,6 +11,7 @@ marcher evaluates the piecewise-linear function from its hinges
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -41,6 +42,18 @@ _COLORMAPS = {
 }
 
 
+#: Source of :attr:`TransferFunction.uid`.
+_TF_UID = itertools.count()
+
+
+def default_opacity_points(lo: float, hi: float):
+    """The default opacity curve for a field's range: a sign-spanning
+    domain (a correlation coefficient) gets a zero-opacity notch at its
+    centre, a one-signed domain a plain ramp."""
+    return (((0.0, 0.7), (0.5, 0.0), (1.0, 0.7))
+            if lo < 0 < hi else ((0.0, 0.0), (1.0, 0.8)))
+
+
 def _sample_control_points(points, resolution):
     xs = np.array([p[0] for p in points], np.float32)
     vals = np.array([p[1] for p in points], np.float32)
@@ -57,6 +70,9 @@ class TransferFunction:
     Attributes:
       lut: ``(resolution, 4)`` float32 RGBA, straight alpha.
       domain: host ``(vmin, vmax)`` scalar range mapped onto the LUT.
+      uid: a monotonic instance id, the invalidation token of layouts
+        classified through this function (``id()`` may be reused once an
+        object is freed).
       color_points, opacity_points: the source control points
         ``[(pos, (r, g, b)), ...]`` and ``[(pos, alpha), ...]`` when the
         LUT was built from them; ``None`` for a LUT-only function.
@@ -64,6 +80,8 @@ class TransferFunction:
 
     lut: torch.Tensor
     domain: tuple = (0.0, 1.0)
+    uid: int = dataclasses.field(default_factory=lambda: next(_TF_UID),
+                                 compare=False)
     color_points: list | None = dataclasses.field(default=None,
                                                   compare=False)
     opacity_points: list | None = dataclasses.field(default=None,
@@ -111,3 +129,37 @@ class TransferFunction:
         return cls(lut=torch.as_tensor(lut, device=device),
                    domain=tuple(float(d) for d in domain),
                    color_points=color_points, opacity_points=opacity_points)
+
+    def to_dict(self) -> dict:
+        """JSON state: the domain, the full LUT (a lossless round trip)
+        and the control points where known."""
+        out = {
+            "domain": list(self.domain),
+            "lut": self.lut.detach().cpu().numpy().tolist(),
+        }
+        if self.color_points is not None:
+            out["color_points"] = [[p, *rgb] for p, rgb in self.color_points]
+        if self.opacity_points is not None:
+            out["opacity_points"] = [[p, a] for p, a in self.opacity_points]
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict, device=None) -> "TransferFunction":
+        """The inverse of :meth:`to_dict`, with the LUT on ``device``; a
+        state with control points but no LUT samples them."""
+        domain = tuple(float(v) for v in d.get("domain", (0.0, 1.0)))
+        if "lut" not in d:
+            return cls.from_control_points(
+                [(p[0], tuple(p[1:4])) for p in d["color_points"]],
+                [(p[0], p[1]) for p in d["opacity_points"]],
+                domain=domain, device=device)
+        color_points = opacity_points = None
+        if "color_points" in d and "opacity_points" in d:
+            color_points = [(float(p[0]), tuple(float(v) for v in p[1:4]))
+                            for p in d["color_points"]]
+            opacity_points = [(float(p[0]), float(p[1]))
+                              for p in d["opacity_points"]]
+        return cls(lut=torch.as_tensor(np.asarray(d["lut"], np.float32),
+                                       device=device),
+                   domain=domain, color_points=color_points,
+                   opacity_points=opacity_points)

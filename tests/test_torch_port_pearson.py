@@ -180,8 +180,20 @@ def test_measure_ids_match_jax():
 
 
 def test_per_voxel_reference_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        correlate_field(torch.zeros((1, 2, 2, 5)), torch.zeros((1, 2, 2, 5)))
+    # The name is older than the port of per-voxel reference series
+    # (SEPARATE_SYMMETRIC mode) and is kept so that the test keeps its
+    # history; it now checks the ported path: each voxel's series against
+    # the same voxel's series of a second stack, as JAX's chunked path
+    # computes it.
+    rng = np.random.default_rng(4)
+    stack = rng.normal(size=(2, 3, 4, 9)).astype(np.float32)
+    ref = (stack + rng.normal(size=stack.shape)).astype(np.float32)
+    ref[0, 1, 2] = 0.0  # a zero reference series: 0/0 = NaN
+    want = np.asarray(jax_correlate_field(jnp.asarray(stack),
+                                          jnp.asarray(ref), "pearson"))
+    got = correlate_field(torch.from_numpy(stack), torch.from_numpy(ref))
+    assert got.shape == (2, 3, 4) and bool(torch.isnan(got[0, 1, 2]))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("stack,ref,exc", [
