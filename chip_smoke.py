@@ -157,6 +157,27 @@ Phases, each asserting; any failure exits non-zero:
    +2 and −2 (``torch.profiler`` names ``pearson_tiled_kernel``), the
    frames' launches and time, how often the field was computed, the most
    frames in flight and the peak memory.
+19. The Scene's view content (run after phase 17 on its ``VolumeData`` of
+   the headline stack; no ``torch.profiler`` window). The view: ``dvr``,
+   an axis slice (z, 0.5), an oblique slice (normal 1, 1, 1; lighting
+   0.5; NaN yellow; fix_on_ground), the domain outline, a shapefile and a
+   graticule world map (the shapefile written under build/views and
+   deleted after the phase), the reference-point marker and the legend.
+   (a) At config 1's size (128×128×32 × 100, 1280×720) on the card,
+   counted launches (K1, K2, K3 once each), against the same Scene on
+   the CPU (one thread). (b) At the headline (1920×1080): counted
+   launches, the median of 5 frames (CUDA events, the change included),
+   the frame against the direct call of the same renderers, the direct
+   call's time and the peak memory, for (h) the reference point moved
+   (K1, K2, K3 with kstop from the slices' and the outline's depth),
+   (i) the camera moved within its principal axis and (j) the point
+   moved without the marker, the legend and the maps; then each part of
+   (h)'s direct call timed alone. (c) The state
+   round trip: ``save_state(reference_format=True)``, ``load_state`` on
+   the same ``VolumeData``, the frames equal within 1e-6 (the view with
+   a TF read from the widget's XML, which the export writes back point
+   for point, and without the shapefile map: the reference format has
+   no key for its path, so both packages import it as the graticule).
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -214,7 +235,7 @@ ATOL_ISO_FRAME = 1e-3  # image where both hit (tests/test_torch_port_iso.py)
 TOL_MOMENTS = (2e-6, 2e-6, 2e-5)
 ATOL_STREAMED = 1e-5  # pearson_streamed against K1 and a float64 Pearson
 # A Scene frame against the direct call on the same inputs: the same
-# kernels on the same tensors.
+# kernels on the same tensors; a reference-state round trip likewise.
 ATOL_SCENE = 1e-6
 # The fast iso scan on the card against the CPU on the same rays: both
 # sum the tent products in float32 in another order, so a slab value
@@ -312,6 +333,12 @@ def measure_bounds(vs: int, n: int, k: int = 3) -> dict:
     # nearest Chebyshev distances (4 operations each) and the two
     # marginal counts by binary search (2·log2(n) operations each).
     ksg = bound(io_bytes, sort_ops + vs * n * (4.0 * (k + 1) + 4.0 * log2n))
+    # B9 (ksg_kernel.py:60-107, estimator 1) compares every ordered pair
+    # of a voxel's members: y_j − y_i, |Δx|, |Δy| and their max (4
+    # operations), at least one comparison to select the k-th distance,
+    # and each marginal count's value-boundary test (two comparisons, an
+    # and, an add: 8); the x differences are shared by every voxel.
+    full_rows = bound(io_bytes, 13.0 * vs * n * n)
     return {
         # Sort, the tie runs' ranks and the three rank moments (about 8
         # operations a member).
@@ -320,8 +347,9 @@ def measure_bounds(vs: int, n: int, k: int = 3) -> dict:
         # counting its exchanges, and the tie runs (about 4 operations a
         # member).
         "kendall": bound(io_bytes, sort_ops + 4.0 * vs * n),
-        # B9 and B10 compute the same function: one bound.
-        "mi_ksg": ksg,
+        # B10 gives B9's answer by a pruned scan: the function's least
+        # work. B9 is held to the full rows it computes.
+        "mi_ksg": full_rows,
         "mi_ksg_banded": ksg,
     }
 
@@ -2286,7 +2314,319 @@ def phase_scene(dev, card: str, stack: torch.Tensor) -> None:
           f" GiB); peak max_memory_allocated {peak / 2**30:.2f} GiB (the "
           f"headline stack the slabs were served from included; the "
           f"member stack alone {mstack.numel() * 4 / 2**30:.2f} GiB)")
-    del scene, vd, mstack
+    del scene, mstack
+    return vd, name
+
+
+VIEWS_DIR = "build/views"
+# Land polygons of the phase-19 shapefile (lon, lat degrees).
+VIEWS_RINGS = (
+    ((-45, -30), (60, -30), (60, 40), (-45, 40), (-45, -30)),
+    ((-160, 10), (-100, 70), (-60, 20), (-120, -50), (-160, 10)),
+    ((100, -60), (170, -60), (135, 10), (100, -60)),
+)
+
+
+def write_shapefile(path: str, rings) -> None:
+    """A polygon ESRI shapefile (.shp) of one record a ring."""
+    import struct
+
+    records = b""
+    for i, ring in enumerate(rings):
+        content = struct.pack("<i", 5) + struct.pack("<4d", -180, -90, 180,
+                                                      90)
+        content += struct.pack("<2i", 1, len(ring)) + struct.pack("<i", 0)
+        content += b"".join(struct.pack("<2d", x, y) for x, y in ring)
+        records += struct.pack(">2i", i + 1, len(content) // 2) + content
+    header = struct.pack(">i", 9994) + b"\0" * 20
+    header += struct.pack(">i", (100 + len(records)) // 2)
+    header += struct.pack("<2i", 1000, 5) + struct.pack(
+        "<8d", -180, -90, 180, 90, 0, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(header + records)
+
+
+#: The phase-19 slices, as Scene renderer settings (the direct calls of
+#: phase_views spell them out).
+VIEW_SLICES = (dict(axis="z", position=0.5),
+               dict(normal_x=1.0, normal_y=1.0, normal_z=1.0,
+                    lighting_factor=0.5, nan_handling="yellow",
+                    fix_on_ground=True))
+
+
+def view_renderers(name: str, shapefile=None, overlays: bool = True):
+    """The phase-19 view's renderer nodes: dvr, the two slices and the
+    outline; with ``overlays`` the world maps (the shapefile's first, if
+    given, then the graticule)."""
+    nodes = [("dvr", {})] + [("slice", kw) for kw in VIEW_SLICES] + [
+        ("domain_outline", {})]
+    if overlays:
+        nodes += [("world_map", {"shapefile": shapefile})] * bool(
+            shapefile) + [("world_map", {})]
+    return [{"type": t, "view": 0, **({"field": name} if t in (
+        "dvr", "slice") else {}), **kw} for t, kw in nodes]
+
+
+def median_frames(step, fn, frames: int = 5) -> float:
+    """Median of ``frames`` CUDA-event timings of ``step(i); fn()`` after
+    a warm-up."""
+    step(0)
+    fn()
+    times = []
+    for i in range(1, frames + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(i)
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def views_config1(dev, card: str, shapefile: str) -> None:
+    """19 (a): the view at config 1's size, card against CPU."""
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_transfer_function)
+    from correrender_tpu_torch.app.state import Scene
+    from correrender_tpu_torch.calculators.correlation import (
+        CorrelationCalculator)
+    from correrender_tpu_torch.core.fields import GridMetadata, VolumeData
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+    from correrender_tpu_torch.utils.metrics import ssim
+
+    (xs, ys, zs), members = CONFIG1_GRID, 100
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stack = synth_box_stack(xs, ys, zs, members, gen, dev)
+
+    def scene_on(device, st):
+        vd = VolumeData(GridMetadata(xs=xs, ys=ys, zs=zs, es=members),
+                        device=device)
+        vd.add_field("q", lambda t, e: st[..., e])
+        scene = Scene(vd, [config1_camera()])
+        name = scene.add_calculator(CorrelationCalculator(
+            field_name="q", reference_point=(xs // 4, ys // 4, zs // 2)))
+        scene.transfer_functions[name] = config1_transfer_function(device)
+        scene.renderers = view_renderers(name, shapefile)
+        return scene
+
+    kw = dict(image_size=CONFIG1_IMAGE, show_reference_points=True,
+              show_legend=True)
+    scene = scene_on(dev, stack)
+    _build.reset_launch_counts()
+    img = scene.render_view(0, **kw)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # see ROADMAP C
+    t0 = time.perf_counter()
+    want = scene_on("cpu", stack.cpu()).render_view(0, **kw)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    a, b = img.cpu().numpy(), want.numpy()
+    err, sim = float(np.abs(a - b).max()), ssim(a, b)
+    print(f"[views {card}] (a) config 1's size ({xs}x{ys}x{zs} x {members}, "
+          f"{CONFIG1_IMAGE[0]}x{CONFIG1_IMAGE[1]}), dvr + 2 slices + outline "
+          f"+ 2 world maps + marker + legend: launches {launches}; card vs "
+          f"CPU (1 thread, {cpu_s:.1f} s) max-abs {err:.3e} (bar "
+          f"{MAX_ABS_FRAME}), SSIM {sim:.6f} (bar {MIN_SSIM_FRAME}), "
+          f"coverage {100 * float((a[..., 3] > 0).mean()):.2f}%")
+    assert a.shape == (CONFIG1_IMAGE[1], CONFIG1_IMAGE[0], 4)
+    assert np.isfinite(a).all() and err <= MAX_ABS_FRAME
+    assert sim >= MIN_SSIM_FRAME
+    assert all(launches.get(k, 0) == 1 for k in FAST_PATH), launches
+
+
+def phase_views(dev, card: str, vd, name: str) -> None:
+    """19. The Scene's view content (see the module docstring)."""
+    import os
+    import shutil
+
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_transfer_function)
+    from correrender_tpu_torch.app.state import (
+        Scene, _composite, _depth_merge)
+    from correrender_tpu_torch.render.camera import Camera
+    from correrender_tpu_torch.render.dvr_fast import dvr_shearwarp
+    from correrender_tpu_torch.render.legend import blend_legend, legend_patch
+    from correrender_tpu_torch.render.outline import outline_render
+    from correrender_tpu_torch.render.picking import (
+        render_reference_point_marker)
+    from correrender_tpu_torch.render.slice_renderer import slice_render_3d
+    from correrender_tpu_torch.render.tf import (
+        tf_from_xml_string, tf_to_xml_string)
+    from correrender_tpu_torch.render.worldmap import (
+        graticule_texture, rasterize_shapefile, world_map_render)
+
+    os.makedirs(VIEWS_DIR, exist_ok=True)
+    try:
+        shapefile = os.path.join(VIEWS_DIR, "land.shp")
+        write_shapefile(shapefile, VIEWS_RINGS)
+        views_config1(dev, card, shapefile)
+
+        side = vd.grid.xs
+        image_size = HEADLINE_IMAGE
+        cam, cam2 = config1_camera(), Camera(position=(0.08, 0.27, 0.86))
+        scene = Scene(vd, [cam])
+        calc = vd.calculators[name]
+        scene.transfer_functions[name] = config1_transfer_function(dev)
+        box = vd.grid.render_box()
+        p1 = (side // 4, side // 4, side // 2)
+        p2 = (side // 4 + 3, side // 4, side // 2)
+        calc.set_reference_point(*p1)
+        host_ms, textures = [], []
+        for build in (lambda: rasterize_shapefile(shapefile),
+                      graticule_texture):
+            t0 = time.perf_counter()
+            textures.append(torch.as_tensor(build(), device=dev))
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[views {card}] world-map textures, built and uploaded once "
+              f"(the Scene caches them; JAX builds them each frame): "
+              f"shapefile {host_ms[0]:.1f} ms, graticule {host_ms[1]:.1f} "
+              f"ms (host clock, synchronized)")
+        on = dict(show_reference_points=True, show_legend=True)
+
+        def direct(overlays=True):
+            """The view without the Scene: the same calls in its order."""
+            view_cam, field = scene.views[0], vd.get_field(name)
+            tf = scene.tf_for(name)
+            kw = dict(image_size=image_size, box=box,
+                      background=(0, 0, 0, 0))
+            merged, depth = _depth_merge([
+                slice_render_3d(field, view_cam, tf, axis="z", position=0.5,
+                                return_depth=True, **kw),
+                slice_render_3d(field, view_cam, tf, normal=(1.0, 1.0, 1.0),
+                                lighting_factor=0.5, nan_handling="yellow",
+                                fix_on_ground=True, return_depth=True, **kw),
+                outline_render(view_cam, box, image_size=image_size,
+                               color=(1, 1, 1, 1), return_depth=True,
+                               device=dev)])
+            image = None
+            for tex in textures if overlays else []:
+                image = world_map_render(
+                    view_cam, texture=tex, plane_height=float(box[0][1])
+                    - 0.01, image_size=image_size, box=box,
+                    base_image=image, device=dev)
+            image = _composite(_composite(image, merged), dvr_shearwarp(
+                field, view_cam, tf, depth_limit=depth, **kw))
+            if overlays:
+                image = render_reference_point_marker(
+                    view_cam, calc.reference_point, vd.grid.shape_zyx, box,
+                    image_size=image_size, base_image=image)
+                image = blend_legend(image, legend_patch(image_size, tf))
+            return image
+
+        def move_point(i):
+            calc.set_reference_point(*(p2 if i % 2 else p1))
+
+        def move_camera(i):
+            scene.views[0] = cam2 if i % 2 else cam
+
+        cases = {  # label: (renderers, step, overlays, expect, forbid)
+            "(h) reference point moved": (
+                view_renderers(name, shapefile), move_point, True,
+                FAST_PATH, ()),
+            "(i) camera moved, same principal axis": (
+                view_renderers(name, shapefile), move_camera, True,
+                ("shearwarp_composite",), ("pearson", "classify_to_cf")),
+            "(j) reference point moved, no marker, legend or maps": (
+                view_renderers(name, overlays=False), move_point, False,
+                FAST_PATH, ()),
+        }
+        rows = []
+        for label, (nodes, step, overlays, expect, forbid) in cases.items():
+            scene.renderers = nodes
+            kw = dict(image_size=image_size, **(on if overlays else {}))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms, launches = scene_frame_check(
+                card, f"views (b) {label}",
+                lambda kw=kw: scene.render_view(0, **kw), step,
+                lambda o=overlays: direct(o), expect=expect, forbid=forbid)
+            peak = torch.cuda.max_memory_allocated(dev)
+            direct_ms = median_frames(step, lambda o=overlays: direct(o))
+            rows.append((label, ms, direct_ms))
+            print(f"[views {card}] (b) {label} at {side}^3 x "
+                  f"{vd.grid.es}, {image_size[0]}x{image_size[1]}: frame "
+                  f"{ms:.3f} ms, the direct call {direct_ms:.3f} ms (medians "
+                  f"of 5), the Scene adds {ms - direct_ms:.3f} ms; launches "
+                  f"{launches}; peak max_memory_allocated "
+                  f"{peak / 2**30:.2f} GiB")
+        print(f"[views {card}] (b) the marker, legend and maps cost "
+              f"{rows[0][1] - rows[2][1]:.3f} ms a frame ((h) - (j))")
+        # Where (h)'s time goes: each part of the direct call alone, on
+        # the field of the last frame.
+        scene.views[0] = cam
+        field, tf = vd.get_field(name), scene.tf_for(name)
+        kw = dict(image_size=image_size, box=box, background=(0, 0, 0, 0))
+        layers = [
+            slice_render_3d(field, cam, tf, axis="z", position=0.5,
+                            return_depth=True, **kw),
+            slice_render_3d(field, cam, tf, normal=(1.0, 1.0, 1.0),
+                            lighting_factor=0.5, nan_handling="yellow",
+                            fix_on_ground=True, return_depth=True, **kw),
+            outline_render(cam, box, image_size=image_size,
+                           color=(1, 1, 1, 1), return_depth=True,
+                           device=dev)]
+        merged, depth = _depth_merge(layers)
+        frame = _composite(merged, dvr_shearwarp(field, cam, tf, **kw))
+        patch = legend_patch(image_size, tf)
+        parts = {
+            "axis slice": lambda: slice_render_3d(
+                field, cam, tf, axis="z", position=0.5, return_depth=True,
+                **kw),
+            "oblique slice": lambda: slice_render_3d(
+                field, cam, tf, normal=(1.0, 1.0, 1.0), lighting_factor=0.5,
+                nan_handling="yellow", fix_on_ground=True,
+                return_depth=True, **kw),
+            "outline": lambda: outline_render(
+                cam, box, image_size=image_size, color=(1, 1, 1, 1),
+                return_depth=True, device=dev),
+            "depth merge of 3": lambda: _depth_merge(layers),
+            "2 world maps": lambda: world_map_render(
+                cam, texture=textures[1], image_size=image_size, box=box,
+                plane_height=float(box[0][1]) - 0.01,
+                base_image=world_map_render(
+                    cam, texture=textures[0], image_size=image_size,
+                    box=box, plane_height=float(box[0][1]) - 0.01,
+                    device=dev)),
+            "marker": lambda: render_reference_point_marker(
+                cam, calc.reference_point, vd.grid.shape_zyx, box,
+                image_size=image_size, base_image=frame),
+            "legend blend": lambda: blend_legend(frame, patch),
+            "dvr (K2, K3, warp)": lambda: dvr_shearwarp(field, cam, tf, **kw),
+            "dvr, K3 with kstop": lambda: dvr_shearwarp(
+                field, cam, tf, depth_limit=depth, **kw),
+        }
+        print(f"[views {card}] (h)'s parts at {image_size[0]}x"
+              f"{image_size[1]} (ms, median of 5 each): " + ", ".join(
+                  f"{k} {median_ms(fn):.3f}" for k, fn in parts.items()))
+        del layers, merged, depth, frame
+
+        # (c) The reference-state round trip.
+        scene.views[0] = cam
+        tf = scene.tf_for(name)
+        scene.transfer_functions[name] = tf_from_xml_string(
+            tf_to_xml_string(tf), tf.domain, device=dev)
+        scene.renderers = view_renderers(name)
+        kw = dict(image_size=image_size, **on)
+        before = scene.render_view(0, **kw)
+        path = os.path.join(VIEWS_DIR, "state.json")
+        scene.save_state(path, reference_format=True)
+        loaded = Scene.load_state(path, volume_data=vd)
+        after = loaded.render_view(0, **kw)
+        err = max_abs(after, before)
+        print(f"[views {card}] (c) reference-state round trip "
+              f"({len(scene.renderers)} renderers, {image_size[0]}x"
+              f"{image_size[1]}): max|loaded - saved| {err:.3e} (bar "
+              f"{ATOL_SCENE})")
+        assert err <= ATOL_SCENE and float(after[..., 3].max()) > 0
+        assert len(loaded.renderers) == len(scene.renderers)
+    finally:
+        shutil.rmtree(VIEWS_DIR, ignore_errors=True)
 
 
 def phase_timelag(dev, card: str, errs: dict) -> None:
@@ -2555,8 +2895,9 @@ def main() -> None:
         ("B6 raymarch_iso_kernel",))
     del frame, exact_frame, iso_frame
     phase_measures_grid(dev, card, errs, stack, stats)
-    phase_scene(dev, card, stack)
-    del stack
+    vd, field_name = phase_scene(dev, card, stack)
+    phase_views(dev, card, vd, field_name)
+    del vd, stack
     phase_iso_fast_config1(dev, card)
     phase_eye_inside(dev, card)
     phase_configs23(dev, card, errs)

@@ -17,24 +17,33 @@ is the JAX package's own (``save_state`` writes the same document):
 }
 ```
 
-Ported renderers: ``dvr`` (shear-warp, its restricted and depth-clipped
-forms, and the exact marcher), ``iso_ray`` (the shear-warp first hit of
-``render/iso_fast.py``, or the exact marcher) and ``iso_raster``. What
-the port cannot draw yet raises ``NotImplementedError`` naming its
-ROADMAP item: the slice, outline and world-map renderers, reference-point
-markers and legends (A.5), diagram overlays (A.10), and reference-app
-state files in either direction (A.6).
+Renderers: ``dvr`` (shear-warp, its restricted and depth-clipped forms,
+and the exact marcher), ``iso_ray`` (the shear-warp first hit of
+``render/iso_fast.py``, or the exact marcher), ``iso_raster``, ``slice``
+(axis-aligned or oblique), ``domain_outline`` and ``world_map``; the
+reference-point markers and the colour legend. Slices, outlines and
+isosurfaces z-merge by eye distance, and DVR stops at the merged depth.
+State files load and save in the framework's schema or in the reference
+app's (``app/state_ref.py``). Diagram overlays are not ported yet and
+raise ``NotImplementedError`` naming ROADMAP A.9-A.10.
 """
 
 from __future__ import annotations
 
 import json
+import logging
+import os
 from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
 import torch
 
+from correrender_tpu_torch.app.state_ref import (
+    convert_reference_state,
+    is_reference_state,
+    reference_state_from_scene,
+)
 from correrender_tpu_torch.calculators.base import calculator_from_settings
 from correrender_tpu_torch.render.camera import Camera
 from correrender_tpu_torch.render.classify import classify_volume
@@ -45,6 +54,15 @@ from correrender_tpu_torch.render.dvr_fast import (
     shearwarp_viable,
 )
 from correrender_tpu_torch.render.iso import iso_render
+from correrender_tpu_torch.render.legend import (
+    blend_legend,
+    color_legend_overlay,
+    legend_patch,
+)
+from correrender_tpu_torch.render.outline import outline_render
+from correrender_tpu_torch.render.picking import (
+    render_reference_point_marker,
+)
 from correrender_tpu_torch.render.iso_fast import (
     iso_shearwarp,
     prepare_iso_shearwarp,
@@ -59,9 +77,16 @@ from correrender_tpu_torch.render.restriction import (
     restriction_center,
     restriction_mask,
 )
+from correrender_tpu_torch.render.slice_renderer import slice_render_3d
 from correrender_tpu_torch.render.tf import (
     TransferFunction,
     default_opacity_points,
+)
+from correrender_tpu_torch.render.worldmap import (
+    graticule_texture,
+    load_raster_texture,
+    rasterize_shapefile,
+    world_map_render,
 )
 
 #: Reference RenderingModes.hpp:62-73.
@@ -79,13 +104,11 @@ RENDERING_MODE_IDS = [
     "distribution_similarity",
 ]
 
-#: Renderers the port has not ported yet, with their ROADMAP item.
-_NOT_PORTED_RENDERERS = {"slice": "A.5", "domain_outline": "A.5",
-                         "world_map": "A.5"}
+#: The renderer types whose transfer function the legend shows.
+_LEGEND_TYPES = ("dvr", "slice", "iso_ray")
 
-#: Keys that mark a state file saved by the reference app.
-_REFERENCE_MARKERS = ("global_camera", "dock_data", "window_size",
-                      "volume_data")
+#: Ground-plane textures kept on the device by a Scene.
+_TEXTURE_CACHE_CAP = 4
 
 
 def _camera_from_json(node: dict) -> Camera:
@@ -108,17 +131,6 @@ def _camera_to_json(cam: Camera) -> dict:
         "up": list(cam.up),
         "fovy": cam.fovy,
     }
-
-
-def _is_reference_state(doc: dict) -> bool:
-    """True for a state file saved by the reference app (the JAX
-    package's ``state_ref.is_reference_state``)."""
-    if any(k in doc for k in _REFERENCE_MARKERS):
-        return True
-    nodes = list(doc.get("renderers") or []) + list(
-        doc.get("calculators") or [])
-    return any(isinstance(n, dict) and isinstance(n.get("state"), dict)
-               for n in nodes)
 
 
 def _restriction_signature(restriction):
@@ -155,6 +167,14 @@ class Scene:
         # Resident layouts: shear-warp DVR and iso slices, exact-marcher
         # layouts. Keys hold the field's dirty epoch and the TF's uid.
         self._prepared_cache: OrderedDict = OrderedDict()
+        # The reference app's window size, from an imported state file.
+        self.window_size = None
+        # Ground-plane textures on the device, keyed on their source (and
+        # a file's modification time), and the legend's patch, keyed on
+        # the frame size and the TF's uid: the JAX Scene builds both anew
+        # each frame, with the same pixels.
+        self._textures: dict = {}
+        self._legend = (None, None)
 
     # -- construction ------------------------------------------------------
 
@@ -242,25 +262,12 @@ class Scene:
                                 device=vol.device)
         return torch.where(mask > 0, vol, torch.nan)
 
-    def _check_portable(self, view, show_reference_points, show_legend,
-                        show_diagram_overlays):
+    def _check_portable(self, view, show_diagram_overlays):
         """Raise for what the port cannot draw yet, before any work."""
-        if show_reference_points:
-            raise NotImplementedError(
-                "show_reference_points: the reference-point marker "
-                "(render/picking.py) is not ported yet (ROADMAP A.5)")
-        if show_legend:
-            raise NotImplementedError(
-                "show_legend: the colour legend (render/legend.py) is not "
-                "ported yet (ROADMAP A.5)")
         for r in self.renderers:
-            if r["view"] != view or r.get("hidden"):
-                continue
-            if r["type"] in _NOT_PORTED_RENDERERS:
-                raise NotImplementedError(
-                    f"the {r['type']!r} renderer is not ported yet (ROADMAP "
-                    f"{_NOT_PORTED_RENDERERS[r['type']]})")
-            if (show_diagram_overlays and r["type"] in self.DIAGRAM_TYPES
+            if (show_diagram_overlays and r["view"] == view
+                    and not r.get("hidden")
+                    and r["type"] in self.DIAGRAM_TYPES
                     and r.get("overlay", True)):
                 raise NotImplementedError(
                     f"diagram overlay {r['type']!r}: the diagrams are not "
@@ -356,17 +363,90 @@ class Scene:
         return dvr_shearwarp(vol, cam, tf, prepared=prep,
                              depth_limit=scene_depth, **kwargs)
 
+    def _render_slice(self, r, field, cam, box, image_size):
+        """One ``slice`` renderer: (rgba, depth). An oblique plane comes
+        in the reference's keys ``normal_x/y/z`` + ``plane_dist``
+        (SliceRenderer.cpp:360-368); ``axis`` + ``position`` is the
+        compact axis-aligned form."""
+        normal = r.get("normal")
+        if normal is None and "normal_x" in r:
+            normal = (r["normal_x"], r.get("normal_y", 0.0),
+                      r.get("normal_z", 0.0))
+        return slice_render_3d(
+            self.volume_data.get_field(field, self.current_time,
+                                       self.current_member),
+            cam, self.tf_for(field), axis=r.get("axis", "z"),
+            position=r.get("position", 0.5), normal=normal,
+            plane_dist=r.get("plane_dist"),
+            lighting_factor=r.get("lighting_factor", 0.0),
+            nan_handling=r.get("nan_handling", "ignore"),
+            fix_on_ground=bool(r.get("fix_on_ground", False)),
+            image_size=image_size, box=box, background=(0, 0, 0, 0),
+            return_depth=True)
+
+    def _world_texture(self, r) -> torch.Tensor:
+        """A ``world_map`` renderer's texture on the device: a local
+        raster (WorldMapRenderer.cpp:57-91, without the download), a
+        rasterized shapefile, or the graticule; built once per source
+        and file version."""
+        if r.get("raster"):
+            lat = tuple(r.get("lat_range", (-90, 90)))
+            lon = tuple(r.get("lon_range", (-180, 180)))
+            key = ("raster", r["raster"], os.stat(r["raster"]).st_mtime_ns,
+                   lat, lon)
+        elif r.get("shapefile"):
+            key = ("shapefile", r["shapefile"],
+                   os.stat(r["shapefile"]).st_mtime_ns)
+        else:
+            key = ("graticule",)
+        tex = self._textures.get(key)
+        if tex is None:
+            if key[0] == "raster":
+                host = load_raster_texture(key[1], lat_range=lat,
+                                           lon_range=lon)
+            elif key[0] == "shapefile":
+                host = rasterize_shapefile(key[1])
+            else:
+                host = graticule_texture()
+            if len(self._textures) >= _TEXTURE_CACHE_CAP:
+                self._textures.clear()
+            tex = self._textures[key] = torch.as_tensor(
+                host, device=self.volume_data.device)
+        return tex
+
+    def _draw_legend(self, image, view, image_size):
+        """The legend of the view's first ``dvr``, ``slice`` or
+        ``iso_ray`` renderer's TF (the reference's colour-legend widget),
+        its patch rasterized on the host once per frame size and TF and
+        blended on the device."""
+        r = next((r for r in self.renderers
+                  if r["view"] == view and not r.get("hidden")
+                  and r["type"] in _LEGEND_TYPES), None)
+        if r is None:
+            return image
+        tf = self.tf_for(r.get("field", self.volume_data.field_names[0]))
+        key = (tuple(image_size), tf.uid)
+        if self._legend[0] != key:
+            self._legend = (key, legend_patch(image_size, tf))
+        patch = self._legend[1]
+        if patch is None:  # a frame too small for the legend: the host path
+            return torch.as_tensor(
+                color_legend_overlay(image.cpu().numpy(), tf),
+                device=image.device)
+        return blend_legend(image, patch)
+
     def render_view(self, view: int = 0, image_size=(512, 512),
                     fast_dvr: bool = True, show_reference_points=False,
                     show_legend: bool = False,
                     show_diagram_overlays: bool = True) -> torch.Tensor:
         """Composite the view's renderers over a transparent base with a
-        shared depth buffer (the reference's SceneData.hpp): opaque
-        renderers (isosurfaces) z-merge by eye distance, then DVR clips
-        against the merged depth. Returns ``(H, W, 4)`` straight-alpha
-        RGBA on the volume's device."""
-        self._check_portable(view, show_reference_points, show_legend,
-                             show_diagram_overlays)
+        shared depth buffer (the reference's SceneData.hpp): world maps
+        underlay the frame, opaque renderers (isosurfaces, slices,
+        outlines) z-merge by eye distance, then DVR clips against the
+        merged depth; the reference-point markers and the legend go on
+        top. Returns ``(H, W, 4)`` straight-alpha RGBA on the volume's
+        device."""
+        self._check_portable(view, show_diagram_overlays)
         cam = self.views[view]
         vd = self.volume_data
         box = vd.grid.render_box()
@@ -393,6 +473,23 @@ class Scene:
                     vol, cam, r.get("iso_value", 0.5), image_size=image_size,
                     box=box, background=(0, 0, 0, 0),
                     model_matrix=vd.model_matrix, return_depth=True))
+            elif r["type"] == "slice":
+                opaque.append(self._render_slice(r, field, cam, box,
+                                                 image_size))
+            elif r["type"] == "domain_outline":
+                opaque.append(outline_render(
+                    cam, box, image_size=image_size,
+                    color=r.get("color", (1, 1, 1, 1)), return_depth=True,
+                    device=vd.device))
+            elif r["type"] == "world_map":
+                # The ground plane below the data: the farthest layer, a
+                # plain underlay outside the depth merge.
+                image = world_map_render(
+                    cam, texture=self._world_texture(r),
+                    plane_height=r.get("plane_height",
+                                       float(box[0][1]) - 0.01),
+                    image_size=image_size, box=box, base_image=image,
+                    device=vd.device)
 
         merged, scene_depth = _depth_merge(opaque)
         if merged is not None:
@@ -404,6 +501,18 @@ class Scene:
         if image is None:
             image = torch.zeros(tuple(image_size[::-1]) + (4,),
                                 dtype=torch.float32, device=vd.device)
+        if show_reference_points:
+            # The reference's renderViewCalculator pass
+            # (VolumeData.cpp:1948): one marker per calculator with a
+            # reference point.
+            for calc in vd.calculators.values():
+                point = getattr(calc, "reference_point", None)
+                if point is not None:
+                    image = render_reference_point_marker(
+                        cam, point, vd.grid.shape_zyx, box,
+                        image_size=image_size, base_image=image)
+        if show_legend:
+            image = self._draw_legend(image, view, image_size)
         return image
 
     # -- state files -------------------------------------------------------
@@ -411,11 +520,15 @@ class Scene:
     def save_state(self, path: str, dataset: Optional[dict] = None,
                    reference_format: bool = False):
         """Write the scene as JSON in the framework's schema (the JAX
-        package's document for the same scene)."""
+        package's document for the same scene), or with
+        ``reference_format`` in the reference app's (MainAppState.cpp:
+        106-205: sgl cameras, ``{type, state}`` nodes, TF-widget XML),
+        which the reference app loads."""
         if reference_format:
-            raise NotImplementedError(
-                "reference_format: the reference-app state exporter "
-                "(app/state_ref.py) is not ported yet (ROADMAP A.6)")
+            with open(path, "w") as f:
+                json.dump(reference_state_from_scene(self, dataset=dataset),
+                          f, indent=4)
+            return
         doc = {
             "version": 1,
             "dataset": dataset or self.dataset_info or {},
@@ -446,20 +559,41 @@ class Scene:
             json.dump(doc, f, indent=2)
 
     @classmethod
-    def load_state(cls, path: str, volume_data=None, device="cuda"):
-        """Load a state file of the framework's schema. Without
-        ``volume_data`` the file's dataset (a filename or a catalog entry)
-        is opened on ``device``. A state file saved by the reference app
-        raises (its importer is ROADMAP A.6)."""
+    def load_state(cls, path: str, volume_data=None, device="cuda",
+                   catalog: Optional[str] = None):
+        """Load a state file of the framework's schema, or one saved by
+        the reference app (detected and converted by
+        ``app/state_ref.py``). Without ``volume_data`` the file's dataset
+        (a filename, or a catalog entry: a reference file names its
+        dataset by name, resolved in ``catalog``) is opened on
+        ``device``. A reference file naming a calculator the port lacks
+        raises ``NotImplementedError`` with its ROADMAP item."""
         from correrender_tpu_torch.io import load_catalog, load_volume
         from correrender_tpu_torch.io.catalog import open_dataset
 
         with open(path) as f:
             doc = json.load(f)
-        if _is_reference_state(doc):
-            raise NotImplementedError(
-                f"{path}: a reference-app state file; its importer "
-                "(app/state_ref.py) is not ported yet (ROADMAP A.6)")
+        if is_reference_state(doc):
+            if volume_data is None:
+                vol = doc.get("volume_data", {}) or {}
+                if "filename" in vol:
+                    volume_data = load_volume(vol["filename"], device=device)
+                elif "name" in vol and catalog:
+                    match = [e for e in load_catalog(catalog)
+                             if e.name == vol["name"]]
+                    if not match:
+                        raise ValueError(f"dataset {vol['name']!r} not in "
+                                         f"catalog {catalog!r}")
+                    volume_data = open_dataset(match[0], device=device)
+                else:
+                    raise ValueError(
+                        "reference state file names its dataset by "
+                        "catalog entry; pass volume_data= or catalog=")
+            doc, warnings = convert_reference_state(
+                doc, volume_data.field_names)
+            for message in warnings:
+                logging.getLogger(__name__).warning("state import: %s",
+                                                    message)
         if volume_data is None:
             ds = doc.get("dataset", {})
             if "catalog" in ds:
@@ -480,8 +614,13 @@ class Scene:
         scene.current_member = doc.get("current_member", 0)
         for node in doc.get("calculators", []):
             node = dict(node)
-            scene.add_calculator(
-                calculator_from_settings(node.pop("type"), node))
+            type_id = node.pop("type")
+            ref_extra = node.pop("_ref_extra", None)
+            calc = calculator_from_settings(type_id, node)
+            if ref_extra:
+                # Reference-only settings, kept for a lossless re-export.
+                calc._ref_extra = ref_extra
+            scene.add_calculator(calc)
         for node in doc.get("renderers", []):
             node = dict(node)
             scene.add_renderer(node.pop("type"), **node)
@@ -491,6 +630,8 @@ class Scene:
         if "dock_layout" in doc:
             scene.dock_layout = [[int(i) for i in row]
                                  for row in doc["dock_layout"]]
+        if "window_size" in doc:
+            scene.window_size = tuple(int(v) for v in doc["window_size"])
         for name, node in doc.get("camera_checkpoints", {}).items():
             scene.camera_checkpoints[name] = _camera_from_json(node)
         return scene

@@ -53,7 +53,7 @@ CALCULATOR_NAMES = {
 }
 
 #: The ROADMAP item that ports each reference type id the port lacks.
-_NOT_PORTED = {
+NOT_PORTED = {
     **dict.fromkeys(
         ("velocity", "vector_magnitude", "vorticity", "helicity",
          "binary_operator", "noise_reduction", "ensemble_mean",
@@ -88,10 +88,10 @@ def calculator_from_settings(type_id: str, settings: dict):
     factory dispatch of ``MainAppState.cpp:163-197``)."""
     cls = _TYPE_REGISTRY.get(type_id)
     if cls is None:
-        if type_id in _NOT_PORTED:
+        if type_id in NOT_PORTED:
             raise KeyError(
                 f"calculator type {type_id!r} is not ported yet (ROADMAP "
-                f"{_NOT_PORTED[type_id]}); ported: {sorted(_TYPE_REGISTRY)}")
+                f"{NOT_PORTED[type_id]}); ported: {sorted(_TYPE_REGISTRY)}")
         raise KeyError(f"unknown calculator type {type_id!r}; known: "
                        f"{sorted(_TYPE_REGISTRY)}")
     settings = dict(settings)

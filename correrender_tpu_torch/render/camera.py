@@ -99,6 +99,42 @@ class Camera:
         return origin, world_dir
 
 
+def rays_in_order(camera: Camera, width: int, height: int, device=None):
+    """The rays of :meth:`Camera.rays`, bit for bit alike on every device.
+
+    The pixel centres come from the host; each matrix product is a chain
+    of single float32 products and sums in a fixed order (``Camera.rays``'
+    ``einsum`` sums in each library's own order), and the norm's square
+    root is taken in float64 and rounded once to float32 (correctly
+    rounded on both devices). The slice and world-map renderers use
+    these rays: a plane hit decides whether a pixel is drawn, and a
+    slice's depth clips the DVR, so an ulp of a ray would move a pixel
+    across the plane's rim between the card and the CPU.
+    """
+    f32 = np.float32
+    inv_view = camera.inverse_view_matrix()
+    inv_proj = camera.inverse_projection_matrix(width / height)
+
+    def centres(count):  # pixel centres in [0, 1]
+        return (np.arange(count, dtype=f32) + f32(0.5)) / f32(count)
+
+    gx = torch.as_tensor(f32(2.0) * centres(width) - f32(1.0),
+                         device=device).reshape(1, width)
+    gy = torch.as_tensor(f32(1.0) - f32(2.0) * centres(height),
+                         device=device).reshape(height, 1)
+    # NDC (x, y, 1, 1) through the inverse projection.
+    vt = [((gx * float(inv_proj[i, 0]) + gy * float(inv_proj[i, 1]))
+           + float(inv_proj[i, 2])) + float(inv_proj[i, 3])
+          for i in range(3)]
+    norm = torch.sqrt(((vt[0] * vt[0] + vt[1] * vt[1]) + vt[2] * vt[2])
+                      .to(torch.float64)).to(torch.float32)
+    vd = [v / norm for v in vt]
+    world = [(vd[0] * float(inv_view[i, 0]) + vd[1] * float(inv_view[i, 1]))
+             + vd[2] * float(inv_view[i, 2]) for i in range(3)]
+    return (torch.as_tensor(inv_view[:3, 3], device=device),
+            torch.stack(world, dim=-1))
+
+
 def ray_dirs_affine(camera: Camera, width: int, height: int):
     """Affine decomposition of the (unnormalized) ray directions.
 

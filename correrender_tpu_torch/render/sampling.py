@@ -47,6 +47,21 @@ def sample_trilinear(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return c0 * (1 - fz) + c1 * fz
 
 
+def sample_nearest(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour sampling with clamp-to-edge, at the normalized
+    xyz ``coords`` of :func:`sample_trilinear`. The voxel index is
+    clamped before the integer cast, so a NaN or infinite coordinate
+    reads an edge voxel on every device."""
+    zs, ys, xs = vol.shape
+    dims = torch.tensor([xs, ys, zs], dtype=torch.float32, device=vol.device)
+    p = torch.nan_to_num(torch.floor(coords * dims))
+
+    def index(axis, n):
+        return torch.clamp(p[..., axis], 0, n - 1).to(torch.long)
+
+    return vol[index(2, zs), index(1, ys), index(0, xs)]
+
+
 def ray_box_intersect(origin, direction, box_min, box_max):
     """Slab-method ray/AABB intersection (the reference DVR shader's
     ``rayBoxIntersectionRayCoords``).

@@ -179,12 +179,9 @@ def test_measure_ids_match_jax():
         measure_from_id("nope")
 
 
-def test_per_voxel_reference_not_ported():
-    # The name is older than the port of per-voxel reference series
-    # (SEPARATE_SYMMETRIC mode) and is kept so that the test keeps its
-    # history; it now checks the ported path: each voxel's series against
-    # the same voxel's series of a second stack, as JAX's chunked path
-    # computes it.
+def test_per_voxel_reference_series_match_jax():
+    # Each voxel's series against the same voxel's series of a second
+    # stack (SEPARATE_SYMMETRIC mode), as JAX's chunked path computes it.
     rng = np.random.default_rng(4)
     stack = rng.normal(size=(2, 3, 4, 9)).astype(np.float32)
     ref = (stack + rng.normal(size=stack.shape)).astype(np.float32)

@@ -282,11 +282,6 @@ def test_transfer_function_lut_matches_jax(name):
     assert torch.equal(via_arrays.lut, got.lut)
 
 
-def test_diagram_colormaps_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        TransferFunction.from_colormap("Cividis")
-
-
 def test_transfer_function_from_arrays_rejects_bad_lut():
     with pytest.raises(ValueError):
         transfer_function_from_arrays(np.zeros((8, 3)), (0, 1))
