@@ -178,6 +178,39 @@ Phases, each asserting; any failure exits non-zero:
    a TF read from the widget's XML, which the export writes back point
    for point, and without the shapefile map: the reference format has
    no key for its path, so both packages import it as the graticule).
+20. The derived-field calculators (run after phase 19 on phase 17's
+   ``VolumeData``). (a) At config 1's grid (128×128×32 × 100, and u, v, w
+   × 10 members of an analytic flow drawn on the host), each field
+   against the same calculator on the CPU (one thread) on the same
+   inputs, at the CPU tests' bars: ensemble mean and spread, DKL binned
+   (80 bins; off the bin edges, and at most the near-edge voxels moved)
+   and kNN (k = 3; NaN in the same voxels), the set predicate (fraction,
+   and count range), noise reduction (σ = 1) of the mean, the binary
+   operator (the mean minus its blur), residual colour, field similarity
+   (Pearson, Kendall) of mean and spread, vector magnitude, vorticity,
+   helicity and the spread of helicity. (b) The same fields at the
+   headline (250³ × 100), and a velocity ``VolumeData`` (u, v, w at 250³
+   × 10 members drawn on the card): the median of 5 CUDA-event times,
+   the field dropped from the cache before each; the ensemble mean, DKL
+   kNN and residual colour also timed in cumulative parts. (c) The Scene renders
+   the DKL kNN and the vorticity field at 1920×1080, its TF changed each
+   frame: K2 and K3 once a frame, the frame equal to the direct
+   ``dvr_shearwarp`` (1e-6), the median of 5 frames, the peak memory.
+   (d) A u/v/w Zarr store written under build/derived (deleted after the
+   phase): ``load_volume`` registers the three velocity calculators.
+21. BASELINE config 5 through its own entry point on a one-rank NCCL
+   mesh at (256, 256, 128) × 64: the sharded Pearson field against
+   ``correlate_field`` (K1, 2e-5); each of the four 1280×720 sharded
+   frames against ``dvr_shearwarp`` of the same field (max-abs 1e-2, SSIM
+   0.995); the launches of the config's own run (K2 and K3 once for
+   each of its eight frames, B3 and K1 none, no frame on the gathered
+   fallback);
+   the NetCDF export (under build/config5, deleted after the phase) read
+   back by ``load_volume``, equal to the bit; ``correlate_member_sharded``
+   with Spearman, Kendall and KSG at 48³ × 1000, each launching B7, B8 or
+   B10 once and equal to ``correlate_field``'s field; the printed
+   ``sharded_pearson_ms``, ``batch_render_total_ms`` and
+   ``export_bytes``. The process group is destroyed at the end.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1450,7 +1483,7 @@ def phase_configs23(dev, card: str, errs: dict) -> None:
     from correrender_tpu_torch.app.baseline_configs import (
         config2_rank_correlations, config3_mutual_information)
     from correrender_tpu_torch.calculators.correlation import (
-        _nan_bounds, correlate_field)
+        correlate_field, nan_bounds)
     from correrender_tpu_torch.ops.cuda import _build
 
     kernel_of = {"spearman": "spearman", "kendall": "kendall",
@@ -1471,7 +1504,7 @@ def phase_configs23(dev, card: str, errs: dict) -> None:
         # Binned MI's default bounds on the card: the global ranges of
         # the whole ref and stack, as 0-d tensors; the CPU takes the same.
         bounds = tuple((lo.cpu(), hi.cpu())
-                       for lo, hi in (_nan_bounds(ref), _nan_bounds(stack)))
+                       for lo, hi in (nan_bounds(ref), nan_bounds(stack)))
         for measure, field in res["fields"].items():
             kernel = kernel_of[measure]
             if kernel:
@@ -2629,6 +2662,522 @@ def phase_views(dev, card: str, vd, name: str) -> None:
         shutil.rmtree(VIEWS_DIR, ignore_errors=True)
 
 
+DERIVED_DIR = "build/derived"
+CONFIG5_DIR = "build/config5"
+VELOCITY_MEMBERS = 10
+# Phase 20's bars, card against the CPU on the same inputs: those of
+# tests/test_torch_port_calculators.py for the same functions.
+TOL_ENSEMBLE = 1e-6  # absolute and relative: float32 sums over members
+TOL_DKL_BINNED = 1e-5  # off the bin edges; near them a voxel may move
+TOL_DKL_KNN = 2e-6  # plus 8 ulps of max|v| carried through log d_k
+TOL_FRACTION = 6e-8  # one ulp of a count over n
+TOL_COUNT_RANGE = 1.2e-7
+TOL_BLUR = 2e-6  # float32 sums of 2r + 1 taps an axis
+TOL_RESIDUAL = 2e-5  # the LUT lerp of an ulp-moved scaled difference
+TOL_VELOCITY = 1e-6  # a few ulps of the largest term
+TOL_SIMILARITY = {"pearson": 2e-6, "kendall": 1e-6}
+SIMILARITY_CPU_SAMPLES = 20_000  # the CPU's Kendall sweep at 4e8 pairs
+CONFIG5_IMAGE = (1280, 720)
+
+
+def analytic_flow(shape_zyx, member: int, members: int, device):
+    """u, v, w of a smooth analytic flow on ``shape_zyx``, with a phase
+    per member (tests/test_torch_port_calculators.py's ``flow``)."""
+    zs, ys, xs = shape_zyx
+    z, y, x = (torch.linspace(0, 2 * math.pi, n, device=device)
+               for n in (zs, ys, xs))
+    z, y, x = z[:, None, None], y[None, :, None], x[None, None, :]
+    p = member / members
+    shape = (zs, ys, xs)
+    return (torch.sin(y + p) * torch.cos(z)).expand(shape),\
+        (torch.sin(z + p) * torch.cos(x)).expand(shape),\
+        (torch.sin(x + 2 * p) * torch.cos(y)).expand(shape)
+
+
+def velocity_volume(shape_zyx, members: int, device, draw_on=None):
+    """A VolumeData with fields u, v, w (the analytic flow, drawn on
+    ``draw_on``, by default ``device``) and the three calculators
+    ``load_volume`` registers for them."""
+    from correrender_tpu_torch.core.fields import GridMetadata, VolumeData
+    from correrender_tpu_torch.io.base import _auto_register_velocity
+
+    zs, ys, xs = shape_zyx
+    vd = VolumeData(GridMetadata(xs=xs, ys=ys, zs=zs, es=members),
+                    device=device)
+    for i, name in enumerate("uvw"):
+        vd.add_field(name, lambda t, e, i=i: analytic_flow(
+            shape_zyx, e, members, draw_on or device)[i])
+    _auto_register_velocity(vd)
+    return vd
+
+
+def derived_calculators(q: str, mean: str, blurred: str):
+    """Phase 20's calculators: (label, calculator, bar kind). The
+    noise reduction reads ``mean``; the binary operator and the residual
+    colour read ``mean`` and ``blurred``."""
+    from correrender_tpu_torch.calculators import (
+        BinaryOperatorCalculator, DKLCalculator, EnsembleMeanCalculator,
+        EnsembleSpreadCalculator, NoiseReductionCalculator,
+        ResidualColorCalculator, SetPredicateCalculator)
+
+    return [
+        ("ensemble mean", EnsembleMeanCalculator(field_name=q), "ensemble"),
+        ("ensemble spread", EnsembleSpreadCalculator(field_name=q),
+         "ensemble"),
+        ("DKL binned (80 bins)", DKLCalculator(
+            field_name=q, estimator="binned", num_bins=80,
+            output_name="DKL binned"), "dkl_binned"),
+        ("DKL kNN (k = 3)", DKLCalculator(
+            field_name=q, estimator="knn", k=3, output_name="DKL kNN"),
+         "dkl_knn"),
+        ("set predicate, fraction > 0.5", SetPredicateCalculator(
+            field_name=q, comparison="greater", aggregation="fraction",
+            threshold=0.5, output_name="fraction"), "fraction"),
+        ("set predicate, count range [20, 60] of > 0.5",
+         SetPredicateCalculator(
+             field_name=q, comparison=">", aggregation="count_range",
+             threshold=0.5, count_lower=20, count_upper=60,
+             output_name="count range"), "count_range"),
+        ("noise reduction (sigma 1) of the mean", NoiseReductionCalculator(
+            field_name=mean, sigma=1.0, output_name="blurred"), "blur"),
+        ("binary operator: mean - its blur", BinaryOperatorCalculator(
+            field_name_a=mean, field_name_b=blurred, operator="difference",
+            output_name="mean - blurred"), "exact"),
+        ("residual colour: mean - its blur", ResidualColorCalculator(
+            field_name_a=mean, field_name_b=blurred,
+            output_name="residual"), "residual"),
+    ]
+
+
+def dkl_edge_voxels(stack: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """Voxels with a sample within 8 float32 ulps of a bin edge, in a
+    float64 evaluation of ``dkl_binned``'s bin positions."""
+    v = stack.reshape(-1, stack.shape[-1]).double()
+    m = v.mean(-1, keepdim=True)
+    vn = (v - m) / ((m - v) ** 2).mean(-1, keepdim=True).sqrt()
+    lo = vn.amin(-1, keepdim=True) - 0.01
+    hi = vn.amax(-1, keepdim=True) + 0.01
+    pos = (vn - lo) * num_bins / (hi - lo)
+    return ((pos - pos.round()).abs()
+            < 8 * 2.0 ** -24 * pos.clamp_min(1)).any(-1)
+
+
+def dkl_knn_bar(stack: torch.Tensor, k: int) -> torch.Tensor:
+    """TOL_DKL_KNN plus 8 ulps of max|v| carried through log d_k, a voxel
+    (float64)."""
+    from correrender_tpu_torch.ops.dkl import kth_neighbour_distance
+
+    v = stack.reshape(-1, stack.shape[-1]).double()
+    m = v.mean(-1, keepdim=True)
+    vn = (v - m) / ((m - v) ** 2).mean(-1, keepdim=True).sqrt()
+    dk = kth_neighbour_distance(torch.sort(vn, dim=-1).values, k)
+    cond = (vn.abs().amax(-1, keepdim=True) / dk).mean(-1) * 2.0 ** -24
+    return TOL_DKL_KNN + 8 * cond
+
+
+def field_error(kind: str, got: torch.Tensor, want: torch.Tensor,
+                stack: torch.Tensor) -> str:
+    """Hold a card field to the CPU's at its kind's bar; a summary."""
+    got = got.cpu()
+    if kind in ("ensemble", "blur", "exact", "residual", "fraction",
+                "count_range", "velocity"):
+        bar = {"ensemble": TOL_ENSEMBLE, "blur": TOL_BLUR, "exact": 0.0,
+               "residual": TOL_RESIDUAL, "fraction": TOL_FRACTION,
+               "count_range": TOL_COUNT_RANGE,
+               "velocity": TOL_VELOCITY}[kind]
+        err = max_abs(got, want)
+        rel = TOL_ENSEMBLE * float(want[~torch.isnan(want)].abs().max()) \
+            if kind == "ensemble" else 0.0
+        assert err <= bar + rel, (kind, err, bar + rel)
+        return f"max-abs {err:.3e} (bar {bar + rel:.1e})"
+    if kind == "dkl_binned":
+        diff = (got - want).abs().reshape(-1)
+        near = dkl_edge_voxels(stack, 80)
+        moved = int((diff > TOL_DKL_BINNED).sum())
+        far = float(diff[~near].max())
+        assert far <= TOL_DKL_BINNED and moved <= int(near.sum()), (
+            far, moved, int(near.sum()))
+        return (f"max-abs off the edges {far:.3e} (bar {TOL_DKL_BINNED}); "
+                f"{moved} voxels moved a bin, {int(near.sum())} near an edge")
+    assert kind == "dkl_knn", kind
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    g, w = got.reshape(-1), want.reshape(-1)
+    ok = ~nan.reshape(-1)
+    bar = dkl_knn_bar(stack.reshape(-1, stack.shape[-1])[ok], 3)
+    ratio = float(((g[ok] - w[ok]).abs() / bar).max())
+    assert ratio <= 1.0, ratio
+    return (f"NaN (ties) in {int(nan.sum())} voxels on both; worst "
+            f"|diff| / bar {ratio:.3f}")
+
+
+def derived_config1(dev, card: str) -> None:
+    """20 (a): every derived field at config 1's grid, card against the
+    CPU (one thread) on the same inputs."""
+    from correrender_tpu_torch.calculators import (
+        EnsembleSpreadCalculator)
+    from correrender_tpu_torch.core.fields import GridMetadata, VolumeData
+    from correrender_tpu_torch.ops.similarity import field_similarity
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+
+    (xs, ys, zs), members = CONFIG1_GRID, 100
+    gen = torch.Generator(device=dev).manual_seed(5)
+    stack = synth_box_stack(xs, ys, zs, members, gen, dev)
+    host = stack.cpu()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # see ROADMAP C
+    t0 = time.perf_counter()
+    try:
+        grid = GridMetadata(xs=xs, ys=ys, zs=zs, es=members)
+        card_vd = VolumeData(grid, device=dev)
+        card_vd.add_field("q", lambda t, e: stack[..., e])
+        cpu_vd = VolumeData(grid, device="cpu")
+        cpu_vd.add_field("q", lambda t, e: host[..., e])
+        calcs = derived_calculators("q", "Ensemble Mean (q)", "blurred")
+        for _, calc, _ in calcs:
+            card_vd.add_calculator(calc)
+        # The CPU side reads the card's mean and blur where a field is
+        # computed from them, so each field is held on the same inputs.
+        mean = card_vd.get_field("Ensemble Mean (q)").cpu()
+        blurred = card_vd.get_field("blurred").cpu()
+        cpu_vd.add_field("m", lambda t, e: mean)
+        cpu_vd.add_field("b", lambda t, e: blurred)
+        for (label, calc, kind), (_, twin, _) in zip(
+                calcs, derived_calculators("q", "m", "b")):
+            cpu_vd.add_calculator(twin)
+            got = card_vd.get_field(calc.output_name)
+            want = cpu_vd.get_field(twin.output_name)
+            assert got.shape == want.shape
+            print(f"[derived {card}] (a) {label}: card vs CPU "
+                  f"{field_error(kind, got, want, host)}")
+        spread = card_vd.get_field("Ensemble Spread (q)").cpu()
+        for measure, bar in TOL_SIMILARITY.items():
+            kw = dict(measure=measure, max_samples=SIMILARITY_CPU_SAMPLES)
+            got = field_similarity(mean.to(dev), spread.to(dev), **kw)
+            want = field_similarity(mean, spread, **kw)
+            print(f"[derived {card}] (a) field similarity {measure} (mean, "
+                  f"spread; {SIMILARITY_CPU_SAMPLES} samples): card "
+                  f"{got:.7f}, CPU {want:.7f} (bar {bar})")
+            assert abs(got - want) <= bar
+        # The velocity family on the same host-drawn flow.
+        vshape = (zs, ys, xs)
+        card_v = velocity_volume(vshape, VELOCITY_MEMBERS, dev, "cpu")
+        cpu_v = velocity_volume(vshape, VELOCITY_MEMBERS, "cpu")
+        for vd in (card_v, cpu_v):
+            vd.add_calculator(EnsembleSpreadCalculator(field_name="Helicity"))
+        for name, kind in (("Vector Magnitude", "velocity"),
+                           ("Vorticity", "velocity"),
+                           ("Helicity", "velocity"),
+                           ("Ensemble Spread (Helicity)", "velocity")):
+            got, want = card_v.get_field(name, 0, 3), cpu_v.get_field(
+                name, 0, 3)
+            print(f"[derived {card}] (a) {name}: card vs CPU "
+                  f"{field_error(kind, got, want, host)}")
+    finally:
+        torch.set_num_threads(threads)
+    print(f"[derived {card}] (a) config 1's grid ({xs}x{ys}x{zs} x "
+          f"{members}; velocity x {VELOCITY_MEMBERS}): every field held, "
+          f"{time.perf_counter() - t0:.1f} s with the CPU on one thread")
+
+
+def field_ms(vd, name: str, *drop) -> float:
+    """Median of 5 CUDA-event times of ``vd.get_field(name)``, the field
+    (and ``drop``) dropped from the cache before each run."""
+    def run():
+        for n in (name,) + drop:
+            vd.cache.invalidate_field(n)
+        return vd.get_field(name)
+
+    return median_ms(run)
+
+
+def derived_frames(card: str, vd, name: str, label: str) -> float:
+    """The Scene's 1080p DVR frame of a derived field, its TF changed
+    each frame (K2 and K3 once a frame), held to the direct call."""
+    from correrender_tpu_torch.app.baseline_configs import config1_camera
+    from correrender_tpu_torch.app.state import Scene
+    from correrender_tpu_torch.render.dvr_fast import dvr_shearwarp
+    from correrender_tpu_torch.render.tf import TransferFunction
+
+    cam = config1_camera()
+    scene = Scene(vd, [cam])
+    scene.add_renderer("dvr", field=name)
+    lo, hi = vd.get_min_max(name)
+    box = vd.grid.render_box()
+
+    def new_tf(i):
+        scene.transfer_functions[name] = TransferFunction.from_colormap(
+            "coolwarm", domain=(lo, hi), device=vd.device,
+            opacity_points=((0.0, 0.0), (1.0, 0.9 - 0.1 * (i % 2))))
+
+    ms, launches = scene_frame_check(
+        card, f"(c) {label}: transfer function changed", lambda: (
+            scene.render_view(0, image_size=HEADLINE_IMAGE)),
+        new_tf, lambda: dvr_shearwarp(
+            vd.get_field(name), cam, scene.tf_for(name),
+            image_size=HEADLINE_IMAGE, box=box, background=(0, 0, 0, 0)),
+        expect=("classify_to_cf", "shearwarp_composite"),
+        forbid=("pearson",))
+    assert launches["classify_to_cf"] == 1 == launches[
+        "shearwarp_composite"], launches
+    return ms
+
+
+def derived_parts(card: str, vd, residual) -> None:
+    """20 (b) split: the ensemble mean, DKL kNN and residual colour timed
+    in cumulative parts on the headline's inputs (CUDA-event medians), to
+    show where their time goes."""
+    from correrender_tpu_torch.calculators.base import stack_slabs
+    from correrender_tpu_torch.ops.dkl import (
+        _normalize, dkl_knn, kth_neighbour_distance)
+    from correrender_tpu_torch.render.tf import TransferFunction
+
+    stack = vd.get_member_stack("q", 0)
+    n = stack.shape[-1]
+    mean, blurred = vd.get_field("Ensemble Mean (q)"), vd.get_field("blurred")
+
+    def over_slabs(fn):
+        def run():  # each slab's result dropped before the next slab
+            for _, slab in stack_slabs(stack):
+                fn(slab.reshape(-1, n))
+        return run
+
+    def sorted_vn(s):
+        return torch.sort(_normalize(s), dim=-1).values
+
+    def residual_upto(step):
+        def run():  # ResidualColorCalculator.compute, cut after ``step``
+            diff = mean - blurred
+            mag = diff.abs()
+            bound = torch.clamp_min(torch.where(
+                torch.isnan(mag), -torch.inf, mag).amax(), 1e-30)
+            if step == "bound":
+                return bound
+            tf = TransferFunction.from_colormap(
+                "coolwarm", domain=(-1.0, 1.0), device=diff.device)
+            return tf if step == "tf" else tf(diff / bound)
+        return run
+
+    parts = {
+        "mean: sum": over_slabs(lambda s: s.sum(-1)),
+        "mean: mean": over_slabs(lambda s: s.mean(-1)),
+        "mean: nanmean": over_slabs(lambda s: torch.nanmean(s, dim=-1)),
+        "kNN: normalize": over_slabs(_normalize),
+        "kNN: + sort": over_slabs(sorted_vn),
+        "kNN: + k-th distance": over_slabs(
+            lambda s: kth_neighbour_distance(sorted_vn(s), 3)),
+        "kNN: dkl_knn": over_slabs(lambda s: dkl_knn(s, 3)),
+        "residual: diff and bound": residual_upto("bound"),
+        "residual: + TF built": residual_upto("tf"),
+        "residual: + lookup": residual_upto("lookup"),
+        "residual: compute()": lambda: residual.compute(0, 0),
+    }
+    print(f"[derived {card}] (b) parts (ms, cumulative within a group, "
+          f"median of 5): " + ", ".join(
+              f"{k} {median_ms(fn):.3f}" for k, fn in parts.items()))
+
+
+def phase_derived(dev, card: str, vd) -> None:
+    """20. The derived-field calculators (see the module docstring)."""
+    import os
+    import shutil
+
+    from correrender_tpu_torch.app.baseline_configs import write_zarr_array
+    from correrender_tpu_torch.calculators import EnsembleSpreadCalculator
+    from correrender_tpu_torch.io import load_volume
+    from correrender_tpu_torch.ops.similarity import field_similarity
+
+    derived_config1(dev, card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    side, members = vd.grid.xs, vd.grid.es
+    calcs = derived_calculators("q", "Ensemble Mean (q)", "blurred")
+    for _, calc, _ in calcs:
+        vd.add_calculator(calc)
+    times = {}
+    for label, calc, _ in calcs:
+        field = vd.get_field(calc.output_name)
+        assert bool(torch.isfinite(field).any()), label
+        times[label] = field_ms(vd, calc.output_name)
+    mean = vd.get_field("Ensemble Mean (q)")
+    spread = vd.get_field("Ensemble Spread (q)")
+    for measure in TOL_SIMILARITY:
+        value = field_similarity(mean, spread, measure)
+        times[f"field similarity {measure}"] = median_ms(
+            lambda: field_similarity(mean, spread, measure), reps=3)
+        assert math.isfinite(value), measure
+        print(f"[derived {card}] field similarity {measure} (mean, spread)"
+              f" = {value:.6f}")
+    print(f"[derived {card}] (b) {side}^3 x {members} fields (ms, median of "
+          f"5 with the field dropped from the cache before each; the member "
+          f"stack resident): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in times.items()))
+    derived_parts(card, vd, next(calc for label, calc, _ in calcs
+                                 if label.startswith("residual")))
+
+    # The velocity VolumeData: u, v, w at the headline's grid, drawn on
+    # the card.
+    vel = velocity_volume((side, side, side), VELOCITY_MEMBERS, dev)
+    vel.add_calculator(EnsembleSpreadCalculator(field_name="Helicity"))
+    vtimes = {}
+    for name in ("Vector Magnitude", "Vorticity", "Helicity"):
+        assert bool(torch.isfinite(vel.get_field(name)).all()), name
+        vtimes[name] = field_ms(vel, name)
+    spread_h = "Ensemble Spread (Helicity)"
+    assert bool(torch.isfinite(vel.get_field(spread_h)).all())
+    vtimes[spread_h + ", stack resident"] = field_ms(vel, spread_h)
+    vtimes[spread_h + ", helicity recomputed"] = field_ms(
+        vel, spread_h, "Helicity")
+    print(f"[derived {card}] (b) velocity {side}^3 x {VELOCITY_MEMBERS} "
+          f"members (u, v, w drawn on the card; ms, median of 5): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in vtimes.items()))
+
+    # (c) The Scene renders the DKL and the vorticity field.
+    frames = {"DKL kNN": derived_frames(card, vd, "DKL kNN", "DKL kNN"),
+              "Vorticity": derived_frames(card, vel, "Vorticity",
+                                          "vorticity")}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[derived {card}] (c) Scene frames at {HEADLINE_IMAGE[0]}x"
+          f"{HEADLINE_IMAGE[1]} (ms): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in frames.items())
+          + f"; peak max_memory_allocated {peak / 2**30:.2f} GiB (the "
+          f"headline stack and phase 17's cache included)")
+
+    # (d) load_volume registers the velocity calculators of a u/v/w file.
+    os.makedirs(DERIVED_DIR, exist_ok=True)
+    try:
+        store = os.path.join(DERIVED_DIR, "wind.zarr")
+        for i, name in enumerate("uvw"):
+            data = np.stack([analytic_flow((16, 24, 32), e, 2, "cpu")[i]
+                             .numpy() for e in range(2)])[:, None]
+            write_zarr_array(os.path.join(store, name), data,
+                             (1, 1, 16, 24, 32))
+        loaded = load_volume(store, device=dev)
+        names = sorted(loaded.calculators)
+        assert names == ["Helicity", "Vector Magnitude", "Vorticity"], names
+        for name in names:
+            assert bool(torch.isfinite(loaded.get_field(name, 0, 1)).all())
+        print(f"[derived {card}] (d) load_volume of a u/v/w Zarr store "
+              f"registered {names}")
+    finally:
+        shutil.rmtree(DERIVED_DIR, ignore_errors=True)
+    for _, calc, _ in calcs:
+        vd.remove_calculator(calc.output_name)
+
+
+def phase_config5(dev, card: str) -> None:
+    """21. BASELINE config 5 (see the module docstring)."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from correrender_tpu_torch.app.baseline_configs import (
+        config5_sharded_batch_render, config5_stack)
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+    from correrender_tpu_torch.io import load_volume
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.parallel import (
+        correlate_member_sharded, dvr_sharded, shard_member_stack)
+    from correrender_tpu_torch.parallel.mesh import shard_member_series
+    from correrender_tpu_torch.render.dvr_fast import dvr_shearwarp
+    from correrender_tpu_torch.utils.metrics import ssim
+
+    # The sharded DVR's one fallback, the gathered dense frame of an
+    # eye-inside camera, launches the same two kernels: count its calls
+    # to show that every frame of the run took the sharded route.
+    gathered = dvr_sharded.dvr_shearwarp
+    fallbacks = []
+
+    def counted_fallback(*args, **kwargs):
+        fallbacks.append(1)
+        return gathered(*args, **kwargs)
+
+    os.makedirs(CONFIG5_DIR, exist_ok=True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        dvr_sharded.dvr_shearwarp = counted_fallback
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = config5_sharded_batch_render(tmp_dir=CONFIG5_DIR)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dvr_sharded.dvr_shearwarp = gathered
+        # The config's own run: 8 sharded frames (warm-up and timed
+        # pass), each K2 then K3 once; the Pearson field is torch moments
+        # (no kernel), and nothing classifies with B3.
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        n_frames = 2 * res["batch_renders"]
+        print(f"[config5 {card}] launches of config5_sharded_batch_render "
+              f"({n_frames} frames): {launches}; gathered fallbacks "
+              f"{len(fallbacks)}")
+        assert launches == {"classify_to_cf": n_frames,
+                            "shearwarp_composite": n_frames}, launches
+        assert not fallbacks, "a config-5 frame took the gathered route"
+        assert dist.get_backend() == "nccl" and res["devices"] == 1
+        mesh, field, tf = res["mesh"], res["field"], res["tf"]
+        stack, ref = res["stack"], res["ref"]
+        want = correlate_field(stack, ref)
+        err = max_abs(field, want)
+        print(f"[config5 {card}] grid {res['grid']} x {res['members']} on "
+              f"{res['devices']} NCCL rank: sharded_pearson_ms "
+              f"{res['sharded_pearson_ms']:.3f}, batch_render_total_ms "
+              f"{res['batch_render_total_ms']:.3f} ({res['batch_renders']} "
+              f"frames at {CONFIG5_IMAGE[0]}x{CONFIG5_IMAGE[1]}), "
+              f"export_bytes {res['export_bytes']}, the config {wall:.1f} s;"
+              f" field vs correlate_field (K1) {err:.3e} (bar "
+              f"{ATOL_PEARSON})")
+        assert err <= ATOL_PEARSON
+        for i, (cam, frame) in enumerate(zip(res["cameras"], res["frames"])):
+            direct = dvr_shearwarp(field, cam, tf, image_size=CONFIG5_IMAGE,
+                                   intermediate_scale=0.5)
+            a, b = frame.cpu().numpy(), direct.cpu().numpy()
+            diff, sim = float(np.abs(a - b).max()), ssim(a, b)
+            print(f"[config5 {card}] frame {i}: vs dvr_shearwarp max-abs "
+                  f"{diff:.3e} (bar {MAX_ABS_FRAME}), SSIM {sim:.6f} (bar "
+                  f"{MIN_SSIM_FRAME})")
+            assert diff <= MAX_ABS_FRAME and sim >= MIN_SSIM_FRAME
+        loaded = load_volume(res["export_path"], device=dev)
+        back = loaded.get_field("pearson")
+        assert torch.equal(back, field), "the export differs"
+        print(f"[config5 {card}] the NetCDF export read back by load_volume:"
+              f" equal to the bit ({res['export_bytes']} bytes)")
+        peak = torch.cuda.max_memory_allocated(dev)
+        del res, stack, field, want, loaded, back
+
+        # The gathered measures at 48^3 x 1000 (launch counters reset
+        # around each call).
+        grid = (MI_GRID, MI_GRID, MI_GRID)
+        st = config5_stack(grid, MI_MEMBERS, (0, MI_GRID), dev)
+        r = torch.as_tensor(np.random.default_rng(3).normal(
+            size=MI_MEMBERS).astype(np.float32), device=dev)
+        block = shard_member_stack(st, mesh)
+        ref_block = shard_member_series(r, mesh)
+        for measure, kernel in (("spearman", "spearman"),
+                                ("kendall", "kendall"),
+                                ("mi_kraskov", "mi_ksg_banded")):
+            _build.reset_launch_counts()
+            got = correlate_member_sharded(block, ref_block, mesh, measure)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            assert launches == {kernel: 1}, (measure, launches)
+            err = max_abs(got, correlate_field(st, r, measure))
+            ms = median_ms(lambda: correlate_member_sharded(
+                block, ref_block, mesh, measure), reps=3)
+            print(f"[config5 {card}] correlate_member_sharded {measure} at "
+                  f"{MI_GRID}^3 x {MI_MEMBERS}: {ms:.3f} ms (median of 3), "
+                  f"launches {launches}, vs correlate_field {err:.3e}")
+            assert err == 0.0
+        print(f"[config5 {card}] peak max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB (config 5's run)")
+    finally:
+        dvr_sharded.dvr_shearwarp = gathered
+        shutil.rmtree(CONFIG5_DIR, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def phase_timelag(dev, card: str, errs: dict) -> None:
     """18. Config 4, then a time-lag store at the headline's grid."""
     import shutil
@@ -2897,7 +3446,9 @@ def main() -> None:
     phase_measures_grid(dev, card, errs, stack, stats)
     vd, field_name = phase_scene(dev, card, stack)
     phase_views(dev, card, vd, field_name)
+    phase_derived(dev, card, vd)
     del vd, stack
+    phase_config5(dev, card)
     phase_iso_fast_config1(dev, card)
     phase_eye_inside(dev, card)
     phase_configs23(dev, card, errs)

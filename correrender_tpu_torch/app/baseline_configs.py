@@ -1,15 +1,15 @@
-"""BASELINE configurations 1-4 on the port.
+"""BASELINE configurations 1-5 on the port.
 
 Counterparts of ``correrender_tpu/app/baseline_configs.py``
 (``config1_synth_box_pearson_dvr``, ``config2_rank_correlations``,
-``config3_mutual_information``, ``config4_timelag_zarr_flythrough``):
-the same grids, members, measures and, for configs 1 and 4, cameras,
-transfer function and image sizes. Configs 1-3 are timed with CUDA
-events, so each needs a CUDA device and refuses any other. Configs 2
-and 3 return their stack, reference series and fields beside the times,
-so a caller can check the very fields that were timed. Config 4 times
-its flythrough passes on the host clock (it writes PNGs), synchronizing
-the card first, and runs on the CPU too.
+``config3_mutual_information``, ``config4_timelag_zarr_flythrough``,
+``config5_sharded_batch_render``): the same grids, members, measures
+and, for configs 1, 4 and 5, cameras, transfer function and image
+sizes. Configs 1-3 are timed with CUDA events, so each needs a CUDA
+device and refuses any other. Configs 2 and 3 return their stack,
+reference series and fields beside the times, so a caller can check the
+very fields that were timed. Configs 4 and 5 time on the host clock,
+synchronizing the card first, and run on the CPU too.
 """
 
 from __future__ import annotations
@@ -273,4 +273,128 @@ def config4_timelag_zarr_flythrough(tmp_dir=None, device="cuda"):
         "scene": scene,
         "cameras": cameras,
         "times": times,
+    }
+
+
+def config5_stack(grid, members: int, z_range, device) -> torch.Tensor:
+    """Planes ``z_range`` of config 5's ``(Z, Y, X, E)`` standard normal
+    stack (``grid`` is ``(X, Y, Z)``): each plane drawn by ``torch.randn``
+    from a generator on ``device`` seeded with its plane index, so a rank
+    draws only its own block and the stack does not depend on the rank
+    count. (The JAX package draws ``jax.random.normal(key(2))``, which is
+    not reproduced.)"""
+    xs, ys, _ = grid
+    planes = []
+    for z in range(*z_range):
+        gen = torch.Generator(device=device).manual_seed(2_000 + z)
+        planes.append(torch.randn((ys, xs, members), generator=gen,
+                                  device=device))
+    if not planes:
+        return torch.empty((0, ys, xs, members), device=device)
+    return torch.stack(planes)
+
+
+def config5_sharded_batch_render(grid=None, members=64, device="cuda",
+                                 tmp_dir=None):
+    """Sharded Pearson field, a batch of four sharded shear-warp renders
+    and a NetCDF export, on a ``(ranks, 1)`` mesh over the running
+    process group (a one-rank group is started if none is).
+
+    ``grid`` is ``(X, Y, Z)``; by default ``(256, 256, 128)`` on the card
+    (the JAX package's size on an accelerator) and ``(64, 64, 32)``
+    elsewhere. Each rank draws its Z-block of the stack
+    (:func:`config5_stack`); the reference series is numpy's
+    ``default_rng(3)`` draw, as in JAX. The field is timed on its second
+    call, the batch (four cameras at 1280×720, intermediate scale 0.5,
+    as in JAX) on its second pass, on the host clock with the card
+    synchronized.
+    The gathered field is written by rank 0 to ``tmp_dir/field.nc``.
+
+    Returns JAX's keys (the times unrounded) beside the rank's ``stack``
+    and ``field`` blocks, ``ref``, the ``frames`` and ``cameras`` of the
+    timed pass, the transfer function ``tf``, the ``mesh`` and the
+    ``export_path``.
+    """
+    import torch.distributed as dist
+
+    from correrender_tpu_torch.io import writers
+    from correrender_tpu_torch.parallel.dvr_sharded import (
+        dvr_shearwarp_sharded,
+    )
+    from correrender_tpu_torch.parallel.mesh import (
+        block_range,
+        gather_z,
+        make_mesh,
+    )
+    from correrender_tpu_torch.parallel.pearson_sharded import (
+        pearson_member_sharded,
+    )
+
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if grid is None:
+        side = 256 if device.type == "cuda" else 64
+        grid = (side, side, side // 2)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    mesh = make_mesh(members=1, device_type=device.type)
+    n_ranks = dist.get_world_size()
+    z_range = block_range(grid[2], n_ranks, mesh.get_local_rank("space"))
+    stack = config5_stack(grid, members, z_range, device)
+    ref = torch.as_tensor(np.random.default_rng(3).normal(
+        size=members).astype(np.float32), device=device)
+    pearson_member_sharded(stack, ref, mesh)
+    field, corr_ms = timed(lambda: pearson_member_sharded(stack, ref, mesh))
+
+    tf = TransferFunction.from_colormap("coolwarm", domain=(-1, 1),
+                                        device=device)
+    cameras = [Camera(position=(0.05 + 0.1 * k, 0.2, 0.9)) for k in range(4)]
+
+    def batch():
+        return [dvr_shearwarp_sharded(field, cam, tf, mesh,
+                                      image_size=(1280, 720),
+                                      intermediate_scale=0.5)
+                for cam in cameras]
+
+    batch()  # warm-up pass, as in JAX
+    frames, render_ms = timed(batch)
+
+    whole = gather_z(field, mesh).cpu().numpy()
+    shared = [tmp_dir or (tempfile.mkdtemp() if dist.get_rank() == 0
+                          else None)]
+    dist.broadcast_object_list(shared, src=0)
+    export = os.path.join(shared[0], "field.nc")
+    if dist.get_rank() == 0:
+        writers.write_netcdf(export, whole, name="pearson")
+    dist.barrier()
+    return {
+        "config": "sharded_batch_render_export",
+        "grid": list(grid),
+        "members": members,
+        "devices": n_ranks,
+        "sharded_pearson_ms": corr_ms,
+        "batch_renders": len(cameras),
+        "batch_render_total_ms": render_ms,
+        "export_bytes": os.path.getsize(export),
+        "note": ("one rank a device; the same sharded program at any rank "
+                 "count"),
+        "stack": stack,
+        "ref": ref,
+        "field": field,
+        "frames": frames,
+        "cameras": cameras,
+        "tf": tf,
+        "mesh": mesh,
+        "export_path": export,
     }

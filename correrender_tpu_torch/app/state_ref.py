@@ -2,12 +2,13 @@
 
 A copy of ``correrender_tpu/app/state_ref.py`` (numpy and stdlib) with
 its imports pointed at the port. It departs from the JAX module in one
-way: a reference calculator type that the port does not hold yet raises
-``NotImplementedError`` naming the ROADMAP item that ports it
-(``calculators.base.NOT_PORTED``: A.7, and A.12 for the neural types)
-before anything is converted, since a silently dropped calculator would
-render another scene; their converters come with those items. Types the
-JAX package does not know either are skipped with a warning, as there.
+way: a neural calculator type, which the port does not hold yet, raises
+``NotImplementedError`` naming ROADMAP A.12
+(``calculators.base.NOT_PORTED``) before anything is converted, since a
+silently dropped calculator would render another scene. Types the JAX
+package does not know either are skipped with a warning, and the
+velocity family and ``dkl_calculator``, which JAX's converter has no
+branch for, raise ``ValueError``, as there.
 
 The reference persists full sessions as JSON (MainAppState.cpp:106-205
 save / :212-423 load): ``global_camera`` + ``views`` (sgl cameras),
@@ -50,6 +51,7 @@ from correrender_tpu_torch.calculators.base import (
     calculator_from_settings,
     known_calculator_types,
 )
+from correrender_tpu_torch.calculators.set_predicate import COMPARISON_GLYPHS
 from correrender_tpu_torch.diagrams import colormaps as _dcm
 from correrender_tpu_torch.ops.registry import MEASURE_NAMES, measure_from_id
 from correrender_tpu_torch.render.camera import Camera
@@ -306,37 +308,114 @@ _CORRELATION_PASSTHROUGH = (
 
 def _convert_calculator(type_id: str, state: dict, names: list,
                         warnings: list) -> dict:
-    """Reference ``{type, state}`` calculator node → our flat node (the
-    correlation calculator, the only type the port holds)."""
-    if type_id != "correlation":
-        # convert_reference_state refuses the other types first.
-        raise ValueError(f"unknown calculator type {type_id!r}")
+    """Reference ``{type, state}`` calculator node → our flat node."""
     s = _coerce_map(state)
     out = {"type": type_id}
     extra = {}
-    for k in _CORRELATION_PASSTHROUGH:
-        if k in s:
-            out[k] = s.pop(k)
-    if "calculate_absolute_value" in s:
-        out["calculate_absolute_value"] = bool(
-            s.pop("calculate_absolute_value"))
-    for axis in "xyz":
-        k = f"reference_point_{axis}"
-        if k in s:
-            out[k] = s.pop(k)
-    mode = out.get("correlation_field_mode", "Single")
-    if int(s.pop("use_separate_fields", 0)) and mode == "Single":
-        mode = out["correlation_field_mode"] = "Separate"
-    if mode != "Single":
-        if "scalar_field_idx_ref" in s:
-            out["scalar_field_name_ref"] = _field_name(
-                names, s.pop("scalar_field_idx_ref"), warnings, type_id)
-        if "scalar_field_idx_query" in s:
+
+    def take(key):
+        return s.pop(key, None)
+
+    if type_id == "correlation":
+        for k in _CORRELATION_PASSTHROUGH:
+            if k in s:
+                out[k] = s.pop(k)
+        if "calculate_absolute_value" in s:
+            out["calculate_absolute_value"] = bool(
+                s.pop("calculate_absolute_value"))
+        for axis in "xyz":
+            k = f"reference_point_{axis}"
+            if k in s:
+                out[k] = s.pop(k)
+        mode = out.get("correlation_field_mode", "Single")
+        if int(s.pop("use_separate_fields", 0)) and mode == "Single":
+            mode = out["correlation_field_mode"] = "Separate"
+        if mode != "Single":
+            if "scalar_field_idx_ref" in s:
+                out["scalar_field_name_ref"] = _field_name(
+                    names, s.pop("scalar_field_idx_ref"), warnings,
+                    type_id)
+            if "scalar_field_idx_query" in s:
+                out["scalar_field_name"] = _field_name(
+                    names, s.pop("scalar_field_idx_query"), warnings,
+                    type_id)
+        if "scalar_field_idx" in s:
             out["scalar_field_name"] = _field_name(
-                names, s.pop("scalar_field_idx_query"), warnings, type_id)
-    if "scalar_field_idx" in s:
-        out["scalar_field_name"] = _field_name(
-            names, s.pop("scalar_field_idx"), warnings, type_id)
+                names, s.pop("scalar_field_idx"), warnings, type_id)
+    elif type_id == "binary_operator":
+        if "binary_operator_type" in s:
+            out["operator_type"] = s.pop("binary_operator_type")
+        for i in (0, 1):
+            k = f"scalar_field_idx_{i}"
+            if k in s:
+                out[f"scalar_field_name_{i}"] = _field_name(
+                    names, s.pop(k), warnings, type_id)
+    elif type_id == "noise_reduction":
+        if "scalar_field_idx" in s:
+            out["scalar_field_name"] = _field_name(
+                names, s.pop("scalar_field_idx"), warnings, type_id)
+        if "sigma" in s:
+            out["standard_deviation"] = s.pop("sigma")
+        if "standard_deviation" in s:
+            out["standard_deviation"] = s.pop("standard_deviation")
+        kernel = take("kernel_size")
+        if kernel is not None:
+            extra["kernel_size"] = kernel
+        kind = take("noise_reduction_type")
+        if kind not in (None, "Gaussian Blur"):
+            warnings.append(
+                f"noise_reduction: type {kind!r} not replicated "
+                "(Gaussian blur only)")
+            extra["noise_reduction_type"] = kind
+    elif type_id in ("ensemble_mean", "ensemble_spread"):
+        if "scalar_field_idx" in s:
+            out["scalar_field_name"] = _field_name(
+                names, s.pop("scalar_field_idx"), warnings, type_id)
+    elif type_id == "set_predicate":
+        for k in ("comparison_operator_type", "comparison_value",
+                  "count_lower", "count_upper",
+                  # ours-only keys (round-tripping our own exports)
+                  "comparison", "aggregation", "threshold",
+                  "threshold_upper"):
+            if k in s:
+                out[k] = s.pop(k)
+        if "scalar_field_idx" in s:
+            out["scalar_field_name"] = _field_name(
+                names, s.pop("scalar_field_idx"), warnings, type_id)
+        if int(s.pop("use_fuzzy_logic", 0)):
+            # Shared formula either way; the flag only changes the GUI
+            # (SetPredicateCalculator.cpp:274 fuzzy accumulation is the
+            # count ramp over fuzzy truth values): noted, not refused.
+            warnings.append("set_predicate: fuzzy-logic truth "
+                            "accumulation approximated by the count ramp")
+        if str(s.get("correlation_mode", "Ensemble")) != "Ensemble":
+            warnings.append("set_predicate: time-mode aggregation not "
+                            "replicated; using ensemble members")
+        s.pop("correlation_mode", None)
+    elif type_id == "dkl":
+        # JAX's converter keeps this branch for a type id its registry
+        # does not hold, so convert_reference_state never reaches it.
+        if "scalar_field_idx" in s:
+            out["scalar_field_name"] = _field_name(
+                names, s.pop("scalar_field_idx"), warnings, type_id)
+        est = take("estimator_type")
+        if est is not None:
+            # DKLCalculator.hpp estimator names: "Binned", "k-NN".
+            out["estimator"] = ("knn" if "nn" in str(est).lower()
+                                else "binned")
+        for k in ("mi_bins", "knn_neighbors"):
+            if k in s:
+                out[k] = s.pop(k)
+    elif type_id == "residual_color":
+        for i in (0, 1):
+            k = f"scalar_field_idx_{i}"
+            if k in s:
+                out[f"scalar_field_name_{i}"] = _field_name(
+                    names, s.pop(k), warnings, type_id)
+    else:
+        # The velocity family and dkl_calculator: no branch in JAX's
+        # converter either, which raises here.
+        raise ValueError(f"unknown calculator type {type_id!r}")
 
     for k, v in s.items():
         extra[k] = v
@@ -894,10 +973,25 @@ def _settings_key_to_reference(key: str, value, name_to_idx: dict):
         return key, _measure_id(value)
     if key == "scalar_field_name":
         return "scalar_field_idx", name_to_idx.get(value, 0)
+    if key in ("scalar_field_name_0", "scalar_field_name_1"):
+        return f"scalar_field_idx_{key[-1]}", name_to_idx.get(value, 0)
     if key == "scalar_field_name_ref":
         return "scalar_field_idx_ref", name_to_idx.get(value, 0)
-    # The keys of the calculators the port lacks (binary operator, noise
-    # reduction, set predicate, DKL, neural) come with ROADMAP A.7, A.12.
+    if key == "operator_type":
+        return "binary_operator_type", value
+    if key == "standard_deviation":
+        return "sigma", value
+    if key == "comparison":
+        glyph = {v: k for k, v in COMPARISON_GLYPHS.items()}.get(value)
+        if glyph is not None:
+            return "comparison_operator_type", glyph
+        return "comparison", value     # ours-only ("between")
+    if key == "threshold":
+        return "comparison_value", value
+    if key == "estimator":
+        return "estimator_type", ("k-NN" if value == "knn" else "Binned")
+    if key == "aggregation" and value == "count_range":
+        return None, None              # implied by count_lower/upper
     return key, value
 
 

@@ -2,14 +2,15 @@
 
 Counterpart of ``correrender_tpu/calculators/base.py``. Type ids mirror
 the reference's ``CALCULATOR_TYPE_IDS`` (src/Calculators/Calculator.hpp:
-58-77), so state files stay compatible. Only the correlation calculator
-is ported so far; every other id of the reference raises ``KeyError``
-naming the ROADMAP item that ports it.
+58-77), so state files stay compatible. The neural ids, which the port
+lacks, raise ``KeyError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
+
+import torch
 
 from correrender_tpu_torch.core.fields import FieldType
 
@@ -53,16 +54,12 @@ CALCULATOR_NAMES = {
 }
 
 #: The ROADMAP item that ports each reference type id the port lacks.
-NOT_PORTED = {
-    **dict.fromkeys(
-        ("velocity", "vector_magnitude", "vorticity", "helicity",
-         "binary_operator", "noise_reduction", "ensemble_mean",
-         "ensemble_spread", "set_predicate", "residual_color",
-         "dkl_calculator"), "A.7"),
-    **dict.fromkeys(
-        ("correlation_torch", "correlation_tiny_cuda_nn",
-         "correlation_quick_mlp", "correlation_vmlp"), "A.12"),
-}
+NOT_PORTED = dict.fromkeys(
+    ("correlation_torch", "correlation_tiny_cuda_nn",
+     "correlation_quick_mlp", "correlation_vmlp"), "A.12")
+
+#: Working-set budget of a member-stack Z-slab (the JAX DKL calculator's).
+SLAB_BUDGET_BYTES = 256 << 20
 
 _TYPE_REGISTRY: Dict[str, Callable] = {}
 
@@ -158,3 +155,14 @@ class Calculator:
 
     def get_settings(self) -> dict:
         return {}
+
+
+def stack_slabs(stack: torch.Tensor):
+    """``(z0, slab)`` over Z-slabs of a ``(Z, Y, X, n)`` member stack, each
+    upcast to float32 and at most ``SLAB_BUDGET_BYTES`` of it (at least
+    one plane): the per-voxel member reductions run slab by slab, so a
+    bfloat16 stack is never copied whole."""
+    zs, ys, xs, n = stack.shape
+    planes = max(int(SLAB_BUDGET_BYTES // (4 * n * ys * xs)), 1)
+    for z0 in range(0, zs, planes):
+        yield z0, stack[z0:z0 + planes].to(torch.float32)

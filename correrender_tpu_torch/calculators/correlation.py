@@ -76,7 +76,7 @@ def _correlate_chunked(series: torch.Tensor, ref: torch.Tensor,
     ]) if series.shape[0] else torch.empty(0, device=series.device)
 
 
-def _nan_bounds(t: torch.Tensor, chunk: int = 1 << 26):
+def nan_bounds(t: torch.Tensor, chunk: int = 1 << 26):
     """(nanmin, nanmax) of ``t`` as 0-d tensors, over chunks of the
     flattened tensor (no full-size temporary)."""
     flat = t.reshape(-1)
@@ -131,7 +131,7 @@ def correlate_field(
     if ref.dtype != torch.float32:
         ref = ref.float()
     if is_measure_binned_mi(m) and mi_bounds is None:
-        mi_bounds = (_nan_bounds(ref), _nan_bounds(stack))
+        mi_bounds = (nan_bounds(ref), nan_bounds(stack))
     n = stack.shape[-1]
     if ref.dim() > 1:
         ref = ref.reshape(-1, n)

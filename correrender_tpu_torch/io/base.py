@@ -159,8 +159,8 @@ def load_volume(paths, dataset_info=None, cache_bytes=None, device="cuda"):
     per-time-step) file series with metadata reuse. A 2-byte float
     ``format_cast`` gives bfloat16 member stacks; a catalog ``transform``
     sets the volume's model matrix. Fields named u, v, w (or U, V, W)
-    raise: the velocity calculators the JAX package registers for them
-    are not ported yet (ROADMAP A.7).
+    get the vector-magnitude, vorticity and helicity calculators
+    (VolumeData.cpp:715-747), as in the JAX package.
     """
     from correrender_tpu_torch.core.fields import VolumeData
 
@@ -174,12 +174,6 @@ def load_volume(paths, dataset_info=None, cache_bytes=None, device="cuda"):
         ld.open(p, dataset_info)
         loaders.append(ld)
     first = loaders[0]
-    names = set(first.field_names)
-    for u, v, w in (("u", "v", "w"), ("U", "V", "W")):
-        if {u, v, w} <= names:
-            raise NotImplementedError(
-                f"fields {u}, {v}, {w}: the velocity calculators the JAX "
-                "package registers for them are not ported yet (ROADMAP A.7)")
 
     ts, es = _series_counts(paths, first, dataset_info)
     per_file_es, per_file_ts = first.es, first.ts
@@ -223,4 +217,23 @@ def load_volume(paths, dataset_info=None, cache_bytes=None, device="cuda"):
 
     for name in first.field_names:
         vd.add_field(name, make_provider(name))
+    _auto_register_velocity(vd)
     return vd
+
+
+def _auto_register_velocity(vd):
+    """u/v/w (or U/V/W, whichever comes first) present → register the
+    velocity-derived calculators (VolumeData.cpp:715-747)."""
+    names = set(vd.field_names)
+    for u, v, w in (("u", "v", "w"), ("U", "V", "W")):
+        if {u, v, w} <= names:
+            from correrender_tpu_torch.calculators.velocity import (
+                HelicityCalculator,
+                VelocityMagnitudeCalculator,
+                VorticityCalculator,
+            )
+
+            for cls in (VelocityMagnitudeCalculator, VorticityCalculator,
+                        HelicityCalculator):
+                vd.add_calculator(cls(u=u, v=v, w=w))
+            return

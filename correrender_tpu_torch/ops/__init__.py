@@ -1,6 +1,5 @@
 """Statistical estimators over the member axis (the last axis), batched
-over every leading axis. Counterpart of ``correrender_tpu/ops``; the
-``dkl_*`` estimators are not ported yet (ROADMAP A.9)."""
+over every leading axis. Counterpart of ``correrender_tpu/ops``."""
 
 from correrender_tpu_torch.ops.registry import (
     CorrelationMeasure,
@@ -22,6 +21,7 @@ from correrender_tpu_torch.ops.mi_ksg import (
     mutual_information_kraskov,
     maximum_mutual_information_kraskov,
 )
+from correrender_tpu_torch.ops.dkl import dkl_binned, dkl_knn
 
 __all__ = [
     "CorrelationMeasure",
@@ -40,4 +40,6 @@ __all__ = [
     "mutual_information_binned",
     "mutual_information_kraskov",
     "maximum_mutual_information_kraskov",
+    "dkl_binned",
+    "dkl_knn",
 ]

@@ -113,7 +113,7 @@ def correlate(
         out = kendall(x, y, dtype=dtype)
     elif is_measure_binned_mi(m):
         if mi_bounds is not None:
-            (xmin, xmax), (ymin, ymax) = _split_bounds(mi_bounds)
+            (xmin, xmax), (ymin, ymax) = split_bounds(mi_bounds)
             xn = _scale01(x, xmin, xmax)
             yn = _scale01(y, ymin, ymax)
         else:
@@ -143,7 +143,7 @@ def _normalize01(v: torch.Tensor) -> torch.Tensor:
     return (v - vmin) / torch.clamp(vmax - vmin, min=1e-30)
 
 
-def _split_bounds(mi_bounds):
+def split_bounds(mi_bounds):
     """``(min, max)`` for both series, or ``((xmin, xmax), (ymin, ymax))``."""
     if isinstance(mi_bounds[0], (tuple, list)):
         return mi_bounds

@@ -27,8 +27,6 @@ package.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
@@ -38,6 +36,7 @@ from correrender_tpu_torch.ops.cuda.shearwarp_kernel import (
     round_bf16,
     shearwarp_composite,
 )
+from correrender_tpu_torch.ops.precision import f32_matmul
 from correrender_tpu_torch.render.camera import (
     default_render_box,
     ray_dirs_affine,
@@ -518,25 +517,10 @@ def _tent(coord: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     return round_bf16(torch.clamp_min(1.0 - (coord - taps).abs(), 0.0))
 
 
-@contextlib.contextmanager
-def _f32_matmul():
-    """Run with TF32 matmuls off, then restore the caller's setting.
-
-    The reference rounds tent weights and image to bf16 and sums the
-    products in f32. TF32 holds bf16 values exactly, so it would not
-    change the products, only let cuBLAS pick another kernel and another
-    summation order. Pinning plain f32 keeps the frame independent of a
-    process-wide ``allow_tf32`` that a caller set for its own work.
-    """
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-
-
-@_f32_matmul()
+# The reference rounds tent weights and image to bf16 and sums the
+# products in f32. TF32 holds bf16 values exactly, so it would not change
+# the products, only the kernel and its summation order: pinned off.
+@f32_matmul()
 def _warp_matmul(
     inter_rgb,  # (Hi, Wi, 3) premultiplied
     inter_a,  # (Hi, Wi)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from correrender_tpu_torch.ops.precision import f32_matmul
 from correrender_tpu_torch.render import dvr_fast as df
 from correrender_tpu_torch.render.camera import default_render_box
 from correrender_tpu_torch.render.iso import _norm, _pow32, iso_render
@@ -124,7 +125,7 @@ def _first_hit_scan(cvol, g, coords_v, coords_u, grid_v, grid_u, eye_uv,
     prev_grad = torch.zeros((hi, wi, 3), dtype=torch.float32, device=dev)
     prev_in = torch.zeros((hi, wi), dtype=torch.bool, device=dev)
     prev_gk = np.float32(0.0)
-    with df._f32_matmul():
+    with f32_matmul():
         for k in range(s):
             gk = g32[k]
             gk_t = _f32(gk, dev)

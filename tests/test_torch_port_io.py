@@ -238,14 +238,6 @@ def test_catalog_opens_as_jax(tmp_path, entry):
         np.testing.assert_array_equal(tvd.model_matrix, jm)
 
 
-def test_velocity_fields_raise(tmp_path):
-    store = tmp_path / "wind.zarr"
-    for name in ("u", "v", "w"):
-        _write_zarr(str(store / name), _data(6)[0, 0], (5, 6, 7), "raw")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        load_volume(str(store), device="cpu")
-
-
 @pytest.mark.parametrize("name", ["a.vtk", "b.nii", "c.xyz", "d.mhd"])
 def test_unported_extension_lists_the_ported(name):
     with pytest.raises(ValueError, match=r"ported: \['cdf', 'dat', 'nc', "

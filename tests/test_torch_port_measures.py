@@ -25,8 +25,8 @@ from correrender_tpu_torch import ops as tops
 from correrender_tpu_torch.app import baseline_configs
 from correrender_tpu_torch.calculators.correlation import (
     _auto_chunk,
-    _nan_bounds,
     correlate_field,
+    nan_bounds,
 )
 from correrender_tpu_torch.ops.cuda import _build
 from correrender_tpu_torch.ops.mi_binned import (
@@ -332,7 +332,7 @@ def test_correlate_field_absolute_matches_jax(measure):
 def test_binned_field_uses_global_bounds():
     stack = _field_stack()
     ref = stack[0, 0, 0].copy()
-    lo, hi = _nan_bounds(t(stack))
+    lo, hi = nan_bounds(t(stack))
     assert float(lo) == np.nanmin(stack) and float(hi) == np.nanmax(stack)
     bounds = ((float(ref.min()), float(ref.max())), (float(lo), float(hi)))
     assert torch.equal(correlate_field(t(stack), t(ref), "mi_binned"),

@@ -305,6 +305,15 @@ def test_port_never_imports_jax():
         for mod in pkgutil.walk_packages(correrender_tpu_torch.__path__,
                                          "correrender_tpu_torch."):
             __import__(mod.name)
+        for name in ("ops.dkl", "ops.similarity", "ops.precision",
+                     "calculators.ensemble",
+                     "calculators.binop", "calculators.noise",
+                     "calculators.set_predicate",
+                     "calculators.residual_color", "calculators.velocity",
+                     "calculators.dkl_calculator", "parallel.mesh",
+                     "parallel.pearson_sharded", "parallel.halo",
+                     "parallel.dvr_sharded", "io.writers"):
+            assert "correrender_tpu_torch." + name in sys.modules, name
         from correrender_tpu_torch.app.baseline_configs import (
             config1_camera, config1_transfer_function)
         from correrender_tpu_torch.render.pipeline import (

@@ -380,7 +380,7 @@ def test_reference_round_trip_through_the_port(tmp_path):
 @pytest.mark.parametrize("type_id", sorted(NOT_PORTED))
 def test_reference_calculators_the_port_lacks_raise(tmp_path, type_id):
     item = NOT_PORTED[type_id]
-    assert item == ("A.12" if type_id.startswith("correlation_") else "A.7")
+    assert item == "A.12"
     doc = reference_doc(calculators=[correlation_state(),
                                      {"type": type_id, "state": {}}])
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
