@@ -211,6 +211,48 @@ Phases, each asserting; any failure exits non-zero:
    B10 once and equal to ``correlate_field``'s field; the printed
    ``sharded_pearson_ms``, ``batch_render_total_ms`` and
    ``export_bytes``. The process group is destroyed at the end.
+22. The sharded isosurface on a one-rank NCCL mesh: the K1 field of a
+   planted-box stack at config 5's grid (256×256×128 × 64), 1920×1080,
+   intermediate scale 1.0, iso 0.5, a Z-principal and an X-principal
+   (resharded) camera, axial supersample 1 and 2: each frame against the
+   dense ``iso_shearwarp`` of the same field (premultiplied max-abs
+   within the CPU tests' 1e-6 between the two port paths, under JAX's
+   cross-package bar 1.5e-2; 0.0 expected on one rank), the median of 5
+   frame times (CUDA events) beside the dense frame's median of 5, the
+   peak memory.
+23. The stress runs on the same one-rank mesh at the sizes of the JAX
+   package's ``MULTIGB_r04.json``: ``stress_pearson`` and
+   ``stress_reshard`` on a 256×512×512 × 64 bfloat16 stack (8 GiB),
+   ``stress_rank_ksg`` with Spearman and Kendall at 64×256×256 × 64 and
+   KSG at 32×128×128 × 64: Pearson against its streamed float64
+   reference (the port's tests' bar, 2e-6), the reshard's content and the
+   rank and KSG fields against the dense ``correlate_field`` (0.0); B7,
+   B8 and B10 once each in the timed call; the rows' times and peak
+   memory. The process group is destroyed at the end.
+24. The multi-host worker: ``multihost_worker.launch(processes=1)``
+   starts it as a child process over ``tcp://127.0.0.1`` (NCCL, world
+   size 1) on a raw Zarr store at config 5's grid, 128×256×256 × 64
+   members in float32 (2 GiB, one chunk a member, under build/multihost,
+   deleted after the phase): the child exits 0, its Pearson and Spearman
+   against float64 numpy within the tests' bars (1e-5, 1e-4), against
+   the one-process K1 field within 1e-5, the reshard exact; the child's
+   Spearman launches B7 once and its one-process Pearson K1 once (the
+   counts in its evidence JSON); the evidence JSON's load, Pearson and
+   reshard times.
+25. The decoders at sizes their users read (files under build/decoders,
+   deleted after the phase): (a) the ERA5 ensemble on pressure levels as
+   the Copernicus CDS serves ``reanalysis-era5-pressure-levels``
+   (``ensemble_members``: 10 members × 37 levels × 720×361, 0.5°), one
+   GRIB2 file a member written by ``write_grib2`` (16-bit simple
+   packing), ``load_volume`` of the 10-file series on the card, each
+   member equal to the bit to the numpy decode (the codec's plain
+   version), the native codec counted; a Pearson
+   ``CorrelationCalculator`` on it and one 1920×1080 Scene frame (K1, K2
+   and K3 once each). (b) A 250³ float32 field in .vti (zlib, appended),
+   .nii.gz, .cvol and .mhd, each loaded on the card equal to the bit to
+   what was written, and one 1920×1080 DVR Scene frame of each (K2 and
+   K3 once). The write, decode and upload seconds per format and the
+   decode MB/s.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2087,7 +2129,7 @@ def iso_scan_rows_cpu(card: str, stages: dict, iso_value: float) -> None:
     """The fast iso scan the card ran (``stages`` from ``on_stage``)
     against the same scan on the CPU, one thread, on every
     ISO_SCAN_ROWS-th intermediate row."""
-    from correrender_tpu_torch.render.iso_fast import _first_hit_scan
+    from correrender_tpu_torch.render.iso_fast import first_hit_scan
 
     found, depth, grad, geo = stages["scan"]
     prep = stages["prepare"]
@@ -2097,7 +2139,7 @@ def iso_scan_rows_cpu(card: str, stages: dict, iso_value: float) -> None:
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # see ROADMAP C
     t0 = time.perf_counter()
-    want = _first_hit_scan(
+    want = first_hit_scan(
         prep["cvol"].cpu(), geo["g"], geo["coords_v"], geo["coords_u"],
         np.asarray(geo["grid_v"])[rows.numpy()], geo["grid_u"],
         (geo["e_u"], geo["e_v"]), iso_value,
@@ -2678,6 +2720,28 @@ TOL_VELOCITY = 1e-6  # a few ulps of the largest term
 TOL_SIMILARITY = {"pearson": 2e-6, "kendall": 1e-6}
 SIMILARITY_CPU_SAMPLES = 20_000  # the CPU's Kendall sweep at 4e8 pairs
 CONFIG5_IMAGE = (1280, 720)
+# Phases 22-25.
+ISO_SHARDED_GRID, ISO_SHARDED_MEMBERS = (256, 256, 128), 64  # (X, Y, Z)
+ISO_SHARDED_CAMERAS = {"z": (0.05, 0.2, 0.9), "x": (0.9, 0.1, 0.15)}
+ISO_SHARDED_VALUE = 0.5
+ATOL_ISO_SHARDED = 1.5e-2  # premultiplied; tests/test_dvr_sharded.py
+ATOL_ISO_SHARDED_PORT = 1e-6  # sharded vs dense port frame; the CPU tests'
+STRESS_PEARSON_GRID = (256, 512, 512)  # (Z, Y, X), MULTIGB_r04.json
+STRESS_RANK_GRID, STRESS_KSG_GRID = (64, 256, 256), (32, 128, 128)
+STRESS_MEMBERS = 64
+ATOL_STRESS_PEARSON = 2e-6  # the port's Pearson bar (tests)
+JAX_STRESS_PEARSON = 1.7881393432617188e-07  # MULTIGB_r04.json, 8 GiB
+MULTIHOST_DIR = "build/multihost"
+MULTIHOST_GRID, MULTIHOST_MEMBERS = (256, 256, 128), 64  # (X, Y, Z)
+DECODERS_DIR = "build/decoders"
+# ERA5 on pressure levels, ensemble members (Copernicus CDS
+# reanalysis-era5-pressure-levels, product_type ensemble_members):
+# 10 members, the 37 levels in hPa, the 0.5-degree grid of 720 x 361.
+ERA5_MEMBERS, ERA5_GRID = 10, (720, 361)
+ERA5_LEVELS = (1000, 975, 950, 925, 900, 875, 850, 825, 800, 775, 750, 700,
+               650, 600, 550, 500, 450, 400, 350, 300, 250, 225, 200, 175,
+               150, 125, 100, 70, 50, 30, 20, 10, 7, 5, 3, 2, 1)
+DECODER_SIDE = 250
 
 
 def analytic_flow(shape_zyx, member: int, members: int, device):
@@ -3401,6 +3465,430 @@ def phase_timelag(dev, card: str, errs: dict) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def premultiplied(img: torch.Tensor) -> torch.Tensor:
+    return torch.cat([img[..., :3] * img[..., 3:4], img[..., 3:4]], -1)
+
+
+def frames_ms(fn, reps: int = 5) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` (no warm-up:
+    the caller has run it)."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_iso_sharded(dev, card: str) -> None:
+    """22. The sharded isosurface (see the module docstring)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+    from correrender_tpu_torch.parallel import iso_shearwarp_sharded, make_mesh
+    from correrender_tpu_torch.render.camera import Camera
+    from correrender_tpu_torch.render.iso_fast import iso_shearwarp
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated(dev)
+    gc.collect()  # reference cycles of the earlier phases' objects
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(dev)
+    print(f"[iso sharded {card}] allocated when the phase starts: "
+          f"{held / 2**30:.2f} GiB, {after / 2**30:.2f} GiB after a garbage "
+          f"collection")
+    xs, ys, zs = ISO_SHARDED_GRID
+    gen = torch.Generator(device=dev).manual_seed(22)
+    stack = synth_box_stack(xs, ys, zs, ISO_SHARDED_MEMBERS, gen, dev)
+    field = correlate_field(stack, stack[zs // 2, ys // 4, xs // 4])
+    del stack
+    mesh = make_mesh(members=1, device_type="cuda")
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for cam_name, pos in ISO_SHARDED_CAMERAS.items():
+        cam = Camera(position=pos)
+        for ss in (1, 2):
+            kw = dict(image_size=HEADLINE_IMAGE, intermediate_scale=1.0,
+                      background=(0, 0, 0, 0), axial_supersample=ss)
+
+            def sharded():
+                return iso_shearwarp_sharded(field, cam, ISO_SHARDED_VALUE,
+                                             mesh, **kw)
+
+            def dense():
+                return iso_shearwarp(field, cam, ISO_SHARDED_VALUE, **kw)
+
+            got, want = sharded(), dense()
+            err = float((premultiplied(got) - premultiplied(want)).abs().max())
+            hits = float((got[..., 3] > 0.5).float().mean())
+            ms = frames_ms(sharded)
+            dense_ms = frames_ms(dense)
+            print(f"[iso sharded {card}] camera {cam_name}, axial supersample"
+                  f" {ss}, {HEADLINE_IMAGE[0]}x{HEADLINE_IMAGE[1]} at "
+                  f"{xs}x{ys}x{zs}: {ms:.3f} ms (median of 5; the dense "
+                  f"iso_shearwarp {dense_ms:.3f} ms, median of 5); vs the "
+                  f"dense frame premultiplied max-abs {err:.3e} (bar "
+                  f"{ATOL_ISO_SHARDED_PORT}, the CPU tests' between the two "
+                  f"port paths; JAX's cross-package bar {ATOL_ISO_SHARDED});"
+                  f" {hits:.4f} of the pixels hit")
+            assert err <= ATOL_ISO_SHARDED_PORT <= ATOL_ISO_SHARDED
+            assert hits > 0.0 and bool(torch.isfinite(got).all())
+    print(f"[iso sharded {card}] peak max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; the "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_stress(dev, card: str) -> None:
+    """23. The stress runs (see the module docstring)."""
+    import torch.distributed as dist
+
+    from correrender_tpu_torch.parallel import (
+        stress_pearson, stress_rank_ksg, stress_reshard)
+
+    t_phase = time.perf_counter()
+    try:
+        torch.cuda.synchronize()
+        row = stress_pearson(grid=STRESS_PEARSON_GRID,
+                             members=STRESS_MEMBERS, mesh_shape=(1, 1),
+                             dtype="bfloat16", device="cuda")
+        print(f"[stress {card}] {json.dumps(row)}")
+        delta = row["max_abs_delta_vs_streamed_f64"]
+        peak = row["compiled_temp_output_bytes_per_device"] or 0
+        print(f"[stress {card}] stress_pearson: {row['stack_gb']:.3f} GiB "
+              f"bfloat16, {row['compute_s'] * 1e3:.3f} ms, "
+              f"{row['gvox_per_s']:.4f} Gvox/s, peak {peak / 2**30:.2f} "
+              f"GiB; max |r - float64| {delta:.3e} over "
+              f"{row['z_slabs_checked']} planes (bar {ATOL_STRESS_PEARSON};"
+              f" the JAX package recorded {JAX_STRESS_PEARSON:.3e})")
+        assert row["max_abs_delta_vs_streamed_f64"] <= ATOL_STRESS_PEARSON
+        assert row["z_slabs_checked"] == STRESS_PEARSON_GRID[0] // 4
+        row = stress_reshard(grid=STRESS_PEARSON_GRID,
+                             members=STRESS_MEMBERS, mesh_shape=(1, 1),
+                             dtype="bfloat16", device="cuda")
+        print(f"[stress {card}] {json.dumps(row)}")
+        assert row["content_max_delta"] == 0.0
+        for measure, grid, kernel in (
+                ("spearman", STRESS_RANK_GRID, "spearman"),
+                ("kendall", STRESS_RANK_GRID, "kendall"),
+                ("mi_kraskov", STRESS_KSG_GRID, "mi_ksg_banded")):
+            row = stress_rank_ksg(measure, grid=grid,
+                                  members=STRESS_MEMBERS, device="cuda")
+            print(f"[stress {card}] {json.dumps(row)}")
+            print(f"[stress {card}] stress_rank_ksg {measure}: "
+                  f"{row['compute_s'] * 1e3:.3f} ms, "
+                  f"{row['voxels_per_s']:.0f} voxels/s, launches of the "
+                  f"timed call {row['timed_launches']}, vs the dense "
+                  f"correlate_field {row['max_abs_delta_vs_dense']:.3e}")
+            assert row["timed_launches"] == {kernel: 1}, row
+            assert row["max_abs_delta_vs_dense"] == 0.0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"[stress {card}] the phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_multihost(dev, card: str) -> None:
+    """24. The multi-host worker (see the module docstring)."""
+    import os
+    import shutil
+
+    from correrender_tpu_torch.app.baseline_configs import config5_stack
+    from correrender_tpu_torch.io.writers import write_zarr
+    from correrender_tpu_torch.parallel.multihost_worker import launch
+
+    t_phase = time.perf_counter()
+    xs, ys, zs = MULTIHOST_GRID
+    os.makedirs(MULTIHOST_DIR, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        stack = config5_stack(MULTIHOST_GRID, MULTIHOST_MEMBERS, (0, zs), dev)
+        data = stack.permute(3, 0, 1, 2).contiguous().cpu().numpy()
+        del stack
+        path = os.path.join(MULTIHOST_DIR, "ensemble.zarr")
+        write_zarr(path, data[:, None], compressor=None)  # (E, T, Z, Y, X)
+        del data
+        write_s = time.perf_counter() - t0
+        # The child shares the card: hand it the blocks this process's
+        # allocator keeps cached from the earlier phases.
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = launch(processes=1, dataset=path,
+                     out=os.path.join(MULTIHOST_DIR, "multihost.json"),
+                     device="cuda", timeout=600)
+        run_s = time.perf_counter() - t0
+        print(f"[multihost {card}] {json.dumps(res)}")
+        print(f"[multihost {card}] one NCCL worker process over tcp://"
+              f"127.0.0.1 on a {res['grid']} x {res['members']} Zarr store "
+              f"(written in {write_s:.1f} s): load "
+              f"{res['load_s_per_process']:.3f} s, Pearson "
+              f"{res['pearson_warm_ms']:.3f} ms, reshard "
+              f"{res['reshard_warm_ms']:.3f} ms (host clock, synchronized);"
+              f" the child {run_s:.1f} s; Pearson vs float64 "
+              f"{res['pearson_max_delta_vs_f64']:.3e} (bar 1e-5), vs the "
+              f"one-process K1 field "
+              f"{res['pearson_max_delta_vs_singleproc']:.3e} (bar 1e-5), "
+              f"Spearman vs float64 {res['spearman_max_delta_vs_f64']:.3e} "
+              f"(bar 1e-4), reshard {res['reshard_max_delta']}; the "
+              f"child's launches: Spearman {res['spearman_launches']}, "
+              f"one-process Pearson {res['singleproc_launches']}")
+        assert res["ok"] and res["num_processes"] == 1
+        assert res["spearman_launches"] == {"spearman": 1}, res
+        assert res["singleproc_launches"] == {"pearson": 1}, res
+        assert res["device"].startswith("cuda")
+        assert res["grid"] == [zs, ys, xs]
+        assert res["pearson_max_delta_vs_f64"] < 1e-5
+        assert res["pearson_max_delta_vs_singleproc"] < 1e-5
+        assert res["spearman_max_delta_vs_f64"] < 1e-4
+        assert res["reshard_max_delta"] == 0.0
+    finally:
+        shutil.rmtree(MULTIHOST_DIR, ignore_errors=True)
+    print(f"[multihost {card}] the phase {time.perf_counter() - t_phase:.1f}"
+          " s")
+
+
+def write_vti_zlib_appended(path: str, field: np.ndarray, name: str,
+                            block: int = 32768) -> None:
+    """A VTK XML ImageData file with one zlib-compressed appended array,
+    as VTK's writer lays it out (32 KiB blocks, UInt32 header)."""
+    import zlib
+
+    raw = np.ascontiguousarray(field, "<f4").tobytes()
+    blocks = [zlib.compress(raw[i:i + block], 1)
+              for i in range(0, len(raw), block)]
+    last = len(raw) - (len(blocks) - 1) * block
+    header = np.array([len(blocks), block, last] + [len(b) for b in blocks],
+                      np.uint32).tobytes()
+    zs, ys, xs = field.shape
+    head = (
+        '<?xml version="1.0"?>\n<VTKFile type="ImageData" version="0.1" '
+        'byte_order="LittleEndian" compressor="vtkZLibDataCompressor">\n'
+        f'<ImageData WholeExtent="0 {xs - 1} 0 {ys - 1} 0 {zs - 1}" '
+        'Origin="0 0 0" Spacing="1 1 1">\n'
+        f'<Piece Extent="0 {xs - 1} 0 {ys - 1} 0 {zs - 1}"><PointData>'
+        f'<DataArray type="Float32" Name="{name}" format="appended" '
+        'offset="0"/></PointData></Piece>\n</ImageData>\n'
+        '<AppendedData encoding="raw">\n_').encode()
+    with open(path, "wb") as f:
+        f.write(head + header + b"".join(blocks)
+                + b"\n</AppendedData>\n</VTKFile>\n")
+
+
+def write_nii_gz(path: str, field: np.ndarray) -> None:
+    """A gzipped NIfTI-1 float32 volume (348-byte header, data at 352)."""
+    import gzip
+    import struct
+
+    zs, ys, xs = field.shape
+    header = bytearray(352)
+    struct.pack_into("<i", header, 0, 348)
+    struct.pack_into("<8h", header, 40, 3, xs, ys, zs, 1, 1, 1, 1)
+    struct.pack_into("<h", header, 70, 16)  # float32
+    struct.pack_into("<8f", header, 76, 1, 1, 1, 1, 1, 1, 1, 1)
+    struct.pack_into("<f", header, 108, 352.0)
+    struct.pack_into("<f", header, 112, 1.0)
+    with open(path, "wb") as f:
+        f.write(gzip.compress(bytes(header) + np.ascontiguousarray(
+            field, "<f4").tobytes(), compresslevel=1))
+
+
+def write_mhd(path: str, field: np.ndarray) -> None:
+    import os
+
+    zs, ys, xs = field.shape
+    raw = os.path.splitext(path)[0] + ".raw"
+    np.ascontiguousarray(field, "<f4").tofile(raw)
+    with open(path, "w") as f:
+        f.write(f"ObjectType = Image\nNDims = 3\nDimSize = {xs} {ys} {zs}\n"
+                "ElementType = MET_FLOAT\nElementSpacing = 1 1 1\n"
+                f"ElementDataFile = {os.path.basename(raw)}\n")
+
+
+def era5_member(member: int, dev) -> np.ndarray:
+    """Member ``member`` of a synthetic ERA5-like temperature field
+    (K) on the 37 pressure levels, ``(levels, lat, lon)``: a lapse-rate
+    profile, a meridional gradient, waves and member noise, drawn on the
+    card."""
+    ni, nj = ERA5_GRID
+    p = torch.tensor(ERA5_LEVELS, dtype=torch.float32, device=dev)
+    lat = torch.linspace(-90.0, 90.0, nj, device=dev)
+    lon = torch.linspace(0.0, 359.5, ni, device=dev)
+    height = 7.0 * torch.log(1000.0 / p)  # km
+    t = (288.0 - 6.5 * torch.clamp(height, max=11.0))[:, None, None]
+    t = t - 30.0 * torch.sin(torch.deg2rad(lat))[None, :, None] ** 2
+    t = t + 3.0 * torch.sin(torch.deg2rad(3.0 * lon))[None, None, :] * \
+        torch.cos(torch.deg2rad(lat))[None, :, None]
+    gen = torch.Generator(device=dev).manual_seed(2500 + member)
+    t = t + 0.5 * torch.randn(t.shape, generator=gen, device=dev)
+    return t.cpu().numpy()
+
+
+def decoder_frame(card: str, vd, name: str, tf, label: str, expect: dict):
+    """One 1920x1080 DVR Scene frame of ``name``, its launches counted."""
+    from correrender_tpu_torch.app.state import Scene
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.render.camera import Camera
+
+    scene = Scene(vd, [Camera(position=(0.05, 0.2, 0.9))])
+    scene.transfer_functions[name] = tf
+    scene.renderers = [{"type": "dvr", "view": 0, "field": name}]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    img = scene.render_view(0, image_size=HEADLINE_IMAGE)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    print(f"[decoders {card}] {label}: one {HEADLINE_IMAGE[0]}x"
+          f"{HEADLINE_IMAGE[1]} Scene frame {ms:.3f} ms (host clock, the "
+          f"first, field computed and cached), launches {launches}")
+    assert launches == expect, launches
+    assert img.shape == HEADLINE_IMAGE[::-1] + (4,)
+    assert bool(torch.isfinite(img).all()) and float(img[..., 3].max()) > 0
+
+
+def phase_decoders(dev, card: str) -> None:
+    """25. The decoders (see the module docstring)."""
+    import os
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from correrender_tpu_torch.calculators.correlation import (
+        CorrelationCalculator)
+    from correrender_tpu_torch.io import codec, grib, load_volume
+    from correrender_tpu_torch.io.base import loader_for_path
+    from correrender_tpu_torch.io.writers import write_cvol
+    from correrender_tpu_torch.render.tf import TransferFunction
+    from correrender_tpu_torch.utils.fixtures import (
+        synth_box_lambda_field_torch)
+
+    t_phase = time.perf_counter()
+    os.makedirs(DECODERS_DIR, exist_ok=True)
+    try:
+        # (a) The ERA5 ensemble in GRIB2, one file a member, written on
+        # every host core (the writer's bit packing is numpy).
+        ni, nj = ERA5_GRID
+        members = [era5_member(m, dev) for m in range(ERA5_MEMBERS)]
+        paths = [os.path.join(DECODERS_DIR, f"era5_pl_member{m}.grib2")
+                 for m in range(ERA5_MEMBERS)]
+
+        def write_member(m):
+            grib.write_grib2(paths[m], {"t": members[m]},
+                             levels=list(ERA5_LEVELS), lat=(-90.0, 90.0),
+                             lon=(0.0, 359.5), nbits=16, date=20200101,
+                             time=1200)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            list(pool.map(write_member, range(ERA5_MEMBERS)))
+        write_s = time.perf_counter() - t0
+        del members
+        mb = ERA5_MEMBERS * len(ERA5_LEVELS) * ni * nj * 4 / 1e6
+        file_mb = sum(os.path.getsize(p) for p in paths) / 1e6
+        codec.library()  # the build, outside the decode's time
+        calls = dict(codec.CALLS)
+        vd = load_volume(paths, device=dev)
+        t0 = time.perf_counter()
+        for m in range(ERA5_MEMBERS):
+            vd.get_field("t", 0, m)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        native = {k: codec.CALLS[k] - calls[k] for k in calls}
+        print(f"[decoders {card}] GRIB2 ERA5 ensemble on pressure levels "
+              f"({ERA5_MEMBERS} members x {len(ERA5_LEVELS)} levels x "
+              f"{ni}x{nj}, {mb:.1f} MB float32 in {file_mb:.1f} MB of GRIB2"
+              f"): written in {write_s:.3f} s; load_volume on the card "
+              f"(decode and upload) {load_s:.3f} s, {mb / load_s:.1f} MB/s; "
+              f"native codec calls {native}")
+        assert native["unpack_bits"] == ERA5_MEMBERS * len(ERA5_LEVELS)
+        # Each member against the numpy decode of its file (every host
+        # core, a member a task).
+        def plain_member(path):
+            loader = grib.GribLoader().open(path)
+            out = np.stack([grib._decode_values(
+                loader._buf, loader._index[("t", 0, z)], None)
+                for z in range(loader.zs)])
+            loader.close()
+            return out
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            for m, want in enumerate(pool.map(plain_member, paths)):
+                got = vd.get_field("t", 0, m).cpu().numpy()
+                assert np.array_equal(got, want), f"member {m} differs"
+        print(f"[decoders {card}] every member on the card equal to the "
+              f"bit to the numpy decode ({time.perf_counter() - t0:.1f} s)")
+        calc = CorrelationCalculator(field_name="t", reference_point=(
+            ni // 2, nj // 2, len(ERA5_LEVELS) // 2))
+        vd.add_calculator(calc)
+        decoder_frame(card, vd, calc.output_name,
+                      TransferFunction.from_colormap("coolwarm",
+                                                     domain=(-1, 1),
+                                                     device=dev),
+                      "GRIB2 Pearson field",
+                      {"pearson": 1, "classify_to_cf": 1,
+                       "shearwarp_composite": 1})
+        del vd, calc
+
+        # (b) A 250^3 field in four formats.
+        # The planted-box field with 1% noise: float data that compresses
+        # as a simulation's output does, not as runs of zeros.
+        side = DECODER_SIDE
+        gen = torch.Generator(device=dev).manual_seed(25)
+        lam = synth_box_lambda_field_torch(side, side, side, device=dev)
+        field = (lam + 0.01 * torch.randn(lam.shape, generator=gen,
+                                          device=dev)).cpu().numpy()
+        del lam
+        mb = field.nbytes / 1e6
+        writers = {
+            "vti": lambda p: write_vti_zlib_appended(p, field, "lambda"),
+            "nii.gz": lambda p: write_nii_gz(p, field),
+            "cvol": lambda p: write_cvol(p, field),
+            "mhd": lambda p: write_mhd(p, field),
+        }
+        for ext, write in writers.items():
+            path = os.path.join(DECODERS_DIR, f"field.{ext}")
+            t0 = time.perf_counter()
+            write(path)
+            write_s = time.perf_counter() - t0
+            loader = loader_for_path(path).open(path)
+            name = loader.field_names[0]
+            t0 = time.perf_counter()
+            arr = loader.load_field(name)
+            decode_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            on_card = torch.from_numpy(np.array(arr, np.float32)).to(dev)
+            torch.cuda.synchronize()
+            upload_s = time.perf_counter() - t0
+            vd = load_volume(path, device=dev)
+            got = vd.get_field(name)
+            assert torch.equal(got, on_card)
+            assert np.array_equal(got.cpu().numpy(), field), ext
+            disk = sum(os.path.getsize(f) for f in (
+                path, os.path.splitext(path)[0] + ".raw") if os.path.exists(f)
+                ) if ext == "mhd" else os.path.getsize(path)
+            print(f"[decoders {card}] {ext} {side}^3 float32 ("
+                  f"{disk / 1e6:.1f} MB on disk): write "
+                  f"{write_s:.3f} s, decode {decode_s:.3f} s "
+                  f"({mb / decode_s:.1f} MB/s), upload {upload_s:.3f} s; on"
+                  f" the card equal to the bit to what was written")
+            decoder_frame(card, vd, name, TransferFunction.from_colormap(
+                "coolwarm", domain=(-1, 1), device=dev), f"{ext} DVR",
+                {"classify_to_cf": 1, "shearwarp_composite": 1})
+            del vd, got, on_card, arr
+    finally:
+        shutil.rmtree(DECODERS_DIR, ignore_errors=True)
+    print(f"[decoders {card}] the phase {time.perf_counter() - t_phase:.1f}"
+          " s")
+
+
 def main() -> None:
     from correrender_tpu_torch.utils.fixtures import synth_box_stack
 
@@ -3449,6 +3937,10 @@ def main() -> None:
     phase_derived(dev, card, vd)
     del vd, stack
     phase_config5(dev, card)
+    phase_iso_sharded(dev, card)
+    phase_stress(dev, card)
+    phase_multihost(dev, card)
+    phase_decoders(dev, card)
     phase_iso_fast_config1(dev, card)
     phase_eye_inside(dev, card)
     phase_configs23(dev, card, errs)

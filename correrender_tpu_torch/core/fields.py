@@ -177,7 +177,10 @@ class VolumeData:
         _, provider = self._providers[name]
         arr = provider(time, member)
         if isinstance(arr, np.ndarray):
-            arr = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+            arr = np.ascontiguousarray(arr, np.float32)
+            # A decoder may return a read-only view of the file's bytes,
+            # which a tensor must not alias.
+            arr = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
         arr = arr.to(device=self.device, dtype=torch.float32).contiguous()
         # Vector and colour fields carry a trailing component axis.
         if tuple(arr.shape[:3]) != self.grid.shape_zyx:

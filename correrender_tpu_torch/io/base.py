@@ -20,11 +20,6 @@ import torch
 
 _LOADER_REGISTRY: dict[str, type] = {}
 
-#: Extensions the JAX package reads and the port does not yet.
-_UNPORTED_EXTENSIONS = ("am", "bin", "ctl", "cvol", "field", "grb", "grb2",
-                        "grib", "grib2", "gz", "h5", "he5", "hdf5", "mhd",
-                        "nii", "vti", "vtk", "vts")
-
 
 def register_loader(cls):
     """Class decorator: register under ``cls.extensions``."""
@@ -41,11 +36,9 @@ def loader_for_path(path: str):
         ext = "zarr"
     cls = _LOADER_REGISTRY.get(ext)
     if cls is None:
-        later = (" (the JAX package reads it; the port not yet, ROADMAP "
-                 "A.15)" if ext in _UNPORTED_EXTENSIONS else "")
         raise ValueError(
-            f"no loader for extension {ext!r} (path {path!r}){later}; "
-            f"ported: {sorted(_LOADER_REGISTRY)}")
+            f"no loader for extension {ext!r} (path {path!r}); "
+            f"known: {sorted(_LOADER_REGISTRY)}")
     return cls()
 
 

@@ -1,9 +1,13 @@
 """Binary volume formats: the reference's .dat descriptor + .raw payload,
-and a standalone .raw named ``name_XxYxZ_dtype.raw``.
+a standalone .raw named ``name_XxYxZ_dtype.raw``, the MetaImage .mhd
+descriptor + raw payload, the group-internal .cvol and GrADS .ctl.
 
-A copy of the .dat and .raw loaders of ``correrender_tpu/io/raw.py``
-(reference: DatRawFileLoader, src/Loaders/); the JAX module's .mhd,
-.cvol and .ctl loaders are not ported yet (ROADMAP A.15).
+A copy of ``correrender_tpu/io/raw.py`` (reference loaders
+DatRawFileLoader, MhdRawFileLoader, CvolLoader and CtlLoader,
+src/Loaders/). The .cvol header layout is
+``char[4] 'cvol' | 3×u64 size | 3×f64 voxel size | u32 dtype | pad``
+with dtype enum {uchar=0, ushort=1, float=2} (CvolLoader.hpp:34-46,
+pack(4)).
 """
 
 from __future__ import annotations
@@ -122,3 +126,147 @@ class RawLoader(VolumeLoader):
         )
         return _normalize_to_float(data)
 
+
+@register_loader
+class MhdRawLoader(VolumeLoader):
+    """MetaImage .mhd descriptor + raw payload."""
+
+    extensions = ("mhd",)
+
+    _MET_TYPES = {
+        "MET_UCHAR": np.uint8,
+        "MET_CHAR": np.int8,
+        "MET_USHORT": np.uint16,
+        "MET_SHORT": np.int16,
+        "MET_UINT": np.uint32,
+        "MET_INT": np.int32,
+        "MET_FLOAT": np.float32,
+        "MET_DOUBLE": np.float64,
+    }
+
+    def open(self, path, dataset_info=None):
+        self.path = path
+        entries = {}
+        with open(path, "r", errors="replace") as f:
+            for line in f:
+                if "=" not in line:
+                    continue
+                key, value = line.split("=", 1)
+                entries[key.strip().lower()] = value.strip()
+        dims = [int(v) for v in entries["dimsize"].split()]
+        self.xs, self.ys, self.zs = dims[0], dims[1], dims[2]
+        spacing = entries.get("elementspacing", "1 1 1").split()
+        self.dx, self.dy, self.dz = (float(v) for v in spacing[:3])
+        self._dtype = self._MET_TYPES[entries.get("elementtype", "MET_FLOAT")]
+        self._raw = entries["elementdatafile"]
+        self._dir = os.path.dirname(os.path.abspath(path))
+        self.field_names = [os.path.splitext(os.path.basename(path))[0]]
+        return self
+
+    def load_field(self, name, time=0, member=0):
+        data = np.fromfile(
+            os.path.join(self._dir, self._raw), dtype=self._dtype
+        )
+        data = data[: self.xs * self.ys * self.zs].reshape(
+            self.zs, self.ys, self.xs
+        )
+        return _normalize_to_float(data)
+
+
+_CVOL_DTYPES = {0: np.uint8, 1: np.uint16, 2: np.float32}
+_CVOL_DTYPE_IDS = {np.uint8: 0, np.uint16: 1, np.float32: 2}
+_CVOL_HEADER = struct.Struct("<4s3q3dIQ")  # magic, sizes, voxel sizes, dtype, pad
+
+
+@register_loader
+class CvolLoader(VolumeLoader):
+    """Group-internal .cvol format (CvolLoader.hpp:34-46)."""
+
+    extensions = ("cvol",)
+
+    def open(self, path, dataset_info=None):
+        self.path = path
+        with open(path, "rb") as f:
+            header = f.read(_CVOL_HEADER.size)
+        magic, sx, sy, sz, vx, vy, vz, dtype_id, _pad = _CVOL_HEADER.unpack(
+            header
+        )
+        if magic != b"cvol":
+            raise ValueError(f"{path}: bad cvol magic {magic!r}")
+        self.xs, self.ys, self.zs = int(sx), int(sy), int(sz)
+        self.dx, self.dy, self.dz = vx, vy, vz
+        self._dtype = _CVOL_DTYPES[dtype_id]
+        self.field_names = [os.path.splitext(os.path.basename(path))[0]]
+        return self
+
+    def load_field(self, name, time=0, member=0):
+        data = np.fromfile(
+            self.path, dtype=self._dtype, offset=_CVOL_HEADER.size
+        )
+        data = data[: self.xs * self.ys * self.zs].reshape(
+            self.zs, self.ys, self.xs
+        )
+        return _normalize_to_float(data)
+
+
+@register_loader
+class CtlLoader(VolumeLoader):
+    """GrADS .ctl descriptor (reference: CtlLoader.cpp) — subset:
+    DSET/XDEF/YDEF/ZDEF/TDEF/VARS with linear axes and sequential
+    float32 binary payload."""
+
+    extensions = ("ctl",)
+
+    def open(self, path, dataset_info=None):
+        self.path = path
+        self._dir = os.path.dirname(os.path.abspath(path))
+        self._vars = []
+        lines = open(path, errors="replace").read().splitlines()
+        i = 0
+        self._big_endian = False
+        while i < len(lines):
+            parts = lines[i].split()
+            i += 1
+            if not parts:
+                continue
+            key = parts[0].lower()
+            if key == "dset":
+                name = parts[1]
+                self._raw = name[1:] if name.startswith("^") else name
+            elif key == "options":
+                self._big_endian = "big_endian" in [p.lower() for p in parts]
+            elif key in ("xdef", "ydef", "zdef"):
+                n = int(parts[1])
+                setattr(self, {"xdef": "xs", "ydef": "ys", "zdef": "zs"}[key], n)
+            elif key == "tdef":
+                self.ts = int(parts[1])
+            elif key == "vars":
+                nv = int(parts[1])
+                for j in range(nv):
+                    vparts = lines[i + j].split()
+                    self._vars.append((vparts[0], int(vparts[1]) or 1))
+                i += nv
+        self.field_names = [v for v, _ in self._vars]
+        return self
+
+    def load_field(self, name, time=0, member=0):
+        dtype = ">f4" if self._big_endian else "<f4"
+        data = np.fromfile(os.path.join(self._dir, self._raw), dtype=dtype)
+        # Sequential layout: per timestep, variables in order, levels each.
+        per_t = sum(lv for _, lv in self._vars) * self.ys * self.xs
+        offset = time * per_t
+        for vname, levels in self._vars:
+            size = levels * self.ys * self.xs
+            if vname == name:
+                arr = data[offset : offset + size].astype(np.float32)
+                zs = levels
+                out = arr.reshape(zs, self.ys, self.xs)
+                if zs != self.zs:
+                    full = np.full(
+                        (self.zs, self.ys, self.xs), np.nan, np.float32
+                    )
+                    full[:zs] = out
+                    out = full
+                return out
+            offset += size
+        raise KeyError(name)

@@ -10,10 +10,11 @@ Counterpart of ``correrender_tpu/parallel``. Two mesh axes:
   partial sums; the rank and kNN measures all-gather the member axis of
   each voxel block.
 
-The sharded isosurface renderer, the stress harness and the multi-host
-entry points (``iso_sharded``, ``stress``, ``multihost``,
-``multihost_worker``) are not ported yet (ROADMAP A.13): their names
-raise ``NotImplementedError`` here.
+Beside them: the sharded shear-warp DVR and isosurface renderers
+(``dvr_sharded``, ``iso_sharded``), the multi-GB stress runs
+(``stress``) and the multi-process path (``multihost``, one device a
+process; ``multihost_worker`` runs it in each process and its
+``launch`` starts local processes).
 """
 
 from correrender_tpu_torch.parallel.mesh import (
@@ -36,6 +37,21 @@ from correrender_tpu_torch.parallel.halo import (
     make_sharded_stencil,
 )
 from correrender_tpu_torch.parallel.dvr_sharded import dvr_shearwarp_sharded
+from correrender_tpu_torch.parallel.iso_sharded import iso_shearwarp_sharded
+from correrender_tpu_torch.parallel.multihost import (
+    initialize_process,
+    member_series_from_local,
+    member_stack_from_local,
+    process_member_range,
+    process_spanning_mesh,
+    replicate_to_host,
+)
+from correrender_tpu_torch.parallel.stress import (
+    stress_config5,
+    stress_pearson,
+    stress_rank_ksg,
+    stress_reshard,
+)
 
 __all__ = [
     "make_mesh",
@@ -52,24 +68,15 @@ __all__ = [
     "make_sharded_stencil",
     "gaussian_blur_3d_sharded",
     "dvr_shearwarp_sharded",
+    "iso_shearwarp_sharded",
+    "stress_pearson",
+    "stress_reshard",
+    "stress_rank_ksg",
+    "stress_config5",
+    "initialize_process",
+    "process_spanning_mesh",
+    "process_member_range",
+    "member_stack_from_local",
+    "member_series_from_local",
+    "replicate_to_host",
 ]
-
-#: Names of the JAX package's parallel modules that wait for ROADMAP A.13.
-_NOT_PORTED = {
-    "iso_shearwarp_sharded": "iso_sharded",
-    "stress_pearson": "stress", "stress_reshard": "stress",
-    "stress_rank_ksg": "stress", "stress_config5": "stress",
-    "initialize_process": "multihost", "process_spanning_mesh": "multihost",
-    "process_member_range": "multihost",
-    "member_stack_from_local": "multihost",
-    "member_series_from_local": "multihost",
-    "replicate_to_host": "multihost", "multihost_worker": "multihost_worker",
-}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} (parallel/{_NOT_PORTED[name]}.py in the JAX package) "
-            "is not ported yet (ROADMAP A.13)")
-    raise AttributeError(name)

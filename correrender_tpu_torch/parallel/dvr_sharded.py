@@ -52,7 +52,7 @@ from correrender_tpu_torch.render.dvr_fast import (
 )
 
 
-def _slab_along(block, z_sizes, idx, n, axis, slab, group):
+def slab_along(block, z_sizes, idx, n, axis, slab, group):
     """This rank's slices ``[idx·slab, (idx + 1)·slab)`` of the global
     volume along array ``axis``, whole along the other two, from the
     ranks' Z-blocks of ``z_sizes`` planes: one ``all_to_all_single``
@@ -143,7 +143,7 @@ def dvr_shearwarp_sharded(
     geo = shearwarp_geometry(camera, box_min, box_max, a, in_plane, flip,
                              s, nv, nu, image_size, intermediate_scale,
                              device=dev)
-    local = _slab_along(volume, z_sizes, idx, n, perm[0], slab, group)
+    local = slab_along(volume, z_sizes, idx, n, perm[0], slab, group)
     order = [perm[0]] + [ax for ax in range(3) if ax != perm[0]]
     local = local.permute(*(order.index(p) for p in perm))
     if local.shape[0] < slab:  # inert slices past the volume's end

@@ -35,25 +35,47 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
-def _gradient_volume(volume: torch.Tensor, box_min, box_max) -> torch.Tensor:
+def gradient_volume(volume: torch.Tensor, box_min, box_max,
+                     halo_axis: int | None = None,
+                     rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Central-difference gradient in world units, ``(Z, Y, X, 3)`` xyz,
-    one-sided at the boundary slices."""
-    zs, ys, xs = volume.shape
+    one-sided at the boundary slices.
+
+    With ``halo_axis``, ``volume`` is a rank's block that carries one
+    halo plane on each side of that array axis (``parallel/
+    iso_sharded.py``): the gradient is of the planes between them, and
+    ``rows = (first, total)`` gives the global index of the first of
+    those planes and the axis's global extent, so the spacing and the
+    one-sided planes are those of the whole volume, bit for bit. Planes
+    at or past ``total`` are padding; their gradient is garbage.
+    """
+    core = (volume if halo_axis is None
+            else volume.narrow(halo_axis, 1, volume.shape[halo_axis] - 2))
+    dims = list(core.shape)
+    if halo_axis is not None:
+        dims[halo_axis] = rows[1]
+    zs, ys, xs = dims
     ext = np.asarray(box_max) - np.asarray(box_min)
     spacing = np.array([ext[0] / xs, ext[1] / ys, ext[2] / zs])
 
     def diff(axis, h):
-        upper = torch.roll(volume, -1, axis)
-        lower = torch.roll(volume, 1, axis)
+        n = core.shape[axis]
+        if axis == halo_axis:
+            upper = volume.narrow(axis, 2, n)
+            lower = volume.narrow(axis, 0, n)
+            first, total = rows
+        else:
+            upper = torch.roll(core, -1, axis)
+            lower = torch.roll(core, 1, axis)
+            first, total = 0, n
         # Divided by tensors: PyTorch on a GPU divides by a Python number
         # as a product with its reciprocal.
-        g = (upper - lower) / _f32(2.0 * h, volume.device)
-        n = volume.shape[axis]
-        idx = torch.arange(n, device=volume.device).reshape(
+        g = (upper - lower) / _f32(2.0 * h, core.device)
+        idx = (first + torch.arange(n, device=core.device)).reshape(
             [-1 if a == axis else 1 for a in range(3)])
-        h32 = _f32(h, volume.device)
-        g = torch.where(idx == 0, (upper - volume) / h32, g)
-        return torch.where(idx == n - 1, (volume - lower) / h32, g)
+        h32 = _f32(h, core.device)
+        g = torch.where(idx == 0, (upper - core) / h32, g)
+        return torch.where(idx == total - 1, (core - lower) / h32, g)
 
     return torch.stack([diff(2, spacing[0]), diff(1, spacing[1]),
                         diff(0, spacing[2])], dim=-1)
@@ -84,7 +106,7 @@ def _first_crossing(samples, ts):
     return crossing, frac
 
 
-def _first_hit_scan(cvol, g, coords_v, coords_u, grid_v, grid_u, eye_uv,
+def first_hit_scan(cvol, g, coords_v, coords_u, grid_v, grid_u, eye_uv,
                     iso_value: float, ip0: int = 0, ip1: int = 1,
                     ax: int = 2, ds: float = 0.0, refine: int = 0):
     """First iso-crossing per intermediate ray.
@@ -182,7 +204,7 @@ def _first_hit_scan(cvol, g, coords_v, coords_u, grid_v, grid_u, eye_uv,
     return found, depth, grad
 
 
-def _axial_interleave(cvol: torch.Tensor, m: int) -> torch.Tensor:
+def axial_interleave(cvol: torch.Tensor, m: int) -> torch.Tensor:
     """m× axial supersampling with exact trilinear sub-slabs: the field
     at a fractional slice position is the lerp of the bracketing planes
     at the same (u, v)."""
@@ -205,7 +227,7 @@ def prepare_iso_shearwarp(volume: torch.Tensor, camera, box=None,
     box_min = np.asarray(box[0], np.float32)
     box_max = np.asarray(box[1], np.float32)
     _, a, in_plane, flip = df.shearwarp_axes(camera)
-    grad = _gradient_volume(volume, box_min, box_max)
+    grad = gradient_volume(volume, box_min, box_max)
     cvol = torch.cat([volume[..., None], grad], dim=-1)
     cvol = cvol.permute(*df.slice_perm(a, in_plane), 3)
     if flip:
@@ -214,7 +236,7 @@ def prepare_iso_shearwarp(volume: torch.Tensor, camera, box=None,
     n_base = cvol.shape[0]
     m = int(axial_supersample)
     if m > 1 and n_base > 1:
-        cvol = _axial_interleave(cvol, m)
+        cvol = axial_interleave(cvol, m)
     return {"key": (a, flip, m), "cvol": cvol, "n_base": n_base}
 
 
@@ -278,7 +300,7 @@ def iso_shearwarp(
     width, height = image_size
     ds_world = (float(slice_coords[1] - slice_coords[0])
                 if len(slice_coords) > 1 else 0.0)
-    found, depth, grad_hit = _first_hit_scan(
+    found, depth, grad_hit = first_hit_scan(
         cvol, geo["g"], geo["coords_v"], geo["coords_u"], grid_v, grid_u,
         (e_u, e_v), iso_value, ip0=in_plane[0], ip1=in_plane[1], ax=a,
         ds=float(np.float32(ds_world)), refine=int(refine))

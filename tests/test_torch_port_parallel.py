@@ -10,6 +10,7 @@ its own. The tests below hold those results to the JAX function on the
 same mesh shape and inputs, each bar stated beside its assert.
 """
 
+import json
 import os
 import time
 
@@ -358,3 +359,255 @@ def test_config5_matches_jax(worlds, world):
                 tf, mesh, image_size=(1280, 720), intermediate_scale=0.5))
             assert np.abs(frames[0] - jframe).max() <= 1e-2
             assert jmetrics.ssim(frames[0], jframe) >= 0.995
+
+
+# -- the sharded isosurface --------------------------------------------------
+
+ISO_NAMES = sorted(ranks.ISO_CASES)
+
+
+def iso_frames_of(worlds, shape, name):
+    frames = [rank[key(shape, f"iso_{name}_r{r}")]
+              for r, rank in enumerate(results(worlds, shape))]
+    for frame in frames[1:]:  # the same frame on every rank
+        np.testing.assert_array_equal(frame, frames[0])
+    return frames[0]
+
+
+def premultiplied(img):
+    """Premultiplied colour and alpha: un-premultiplying a near-zero
+    alpha turns rounding noise into colour differences (JAX's
+    ``_assert_images_match``)."""
+    return np.concatenate([img[..., :3] * img[..., 3:4], img[..., 3:4]], -1)
+
+
+@pytest.mark.parametrize("name", ISO_NAMES)
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_iso_shearwarp_sharded_matches_the_dense_frame(worlds, shape, name):
+    from correrender_tpu_torch.render.iso_fast import iso_shearwarp
+
+    vname, pos, ss = ranks.ISO_CASES[name]
+    vol = DATA[vname]
+    got = iso_frames_of(worlds, shape, name)
+    want = iso_shearwarp(torch.from_numpy(vol), Camera(position=pos),
+                         ranks.iso_value(vol), image_size=ranks.ISO_IMAGE,
+                         background=(0, 0, 0, 0),
+                         axial_supersample=ss).numpy()
+    # Against the port's dense iso_shearwarp of the whole volume: the halo
+    # gradient equals the dense one bit for bit and each slice's crossing
+    # is computed alike, so the first-found combine gives the dense hit
+    # map; the supersampled g is interleaved in float32 as JAX's
+    # (1e-6 covers a rounding of the shading).
+    np.testing.assert_allclose(premultiplied(got), premultiplied(want),
+                               rtol=0, atol=1e-6)
+    if name == "z":
+        assert (got[..., 3] > 0.5).any()  # the surface is visible
+
+
+@pytest.mark.parametrize("name", ISO_NAMES)
+@pytest.mark.parametrize("shape", [(2, 1), (4, 1)], ids=["2x1", "4x1"])
+def test_iso_shearwarp_sharded_matches_jax(worlds, shape, name):
+    from correrender_tpu.parallel.iso_sharded import (
+        iso_shearwarp_sharded as jax_iso_sharded,
+    )
+
+    vname, pos, ss = ranks.ISO_CASES[name]
+    vol = DATA[vname]
+    got = iso_frames_of(worlds, shape, name)
+    want = np.asarray(jax_iso_sharded(
+        jnp.asarray(vol), JaxCamera(position=pos), ranks.iso_value(vol),
+        jax_mesh(shape), image_size=ranks.ISO_IMAGE,
+        background=(0, 0, 0, 0), axial_supersample=ss))
+    # JAX's bar for its sharded iso against its dense frame
+    # (tests/test_dvr_sharded.py), premultiplied.
+    np.testing.assert_allclose(premultiplied(got), premultiplied(want),
+                               rtol=0, atol=1.5e-2)
+
+
+# -- the multi-process helpers -----------------------------------------------
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_multihost_helpers_match_jax(worlds, shape):
+    from correrender_tpu.parallel import multihost as jax_mh
+
+    space, members = shape
+    e = DATA["stack"].shape[-1]
+    jmesh = jax_mh.process_spanning_mesh(8 // members, members)
+    # One JAX process holds every member; each port process (one device)
+    # holds its members' block, and the blocks tile JAX's range.
+    ranges = []
+    for r, rank in enumerate(results(worlds, shape)):
+        lo, hi = rank[key(shape, f"member_range_r{r}")]
+        m = r % members
+        assert (lo, hi) == (m * e // members, (m + 1) * e // members)
+        ranges.append((int(lo), int(hi)))
+        assert rank[key(shape, f"local_stack_equal_r{r}")]
+        np.testing.assert_array_equal(rank[key(shape, "replicated_stack")],
+                                      DATA["stack"])
+        np.testing.assert_array_equal(
+            rank[key(shape, "replicated_series")],
+            np.arange(e, dtype=np.float32))
+        assert str(rank[key(shape, "local_stack_error")]) == (
+            f"local stack has {hi - lo - 1} members, process range is "
+            f"[{lo}, {hi})")
+    assert (min(r[0] for r in ranges), max(r[1] for r in ranges)) == \
+        jax_mh.process_member_range(jmesh, e)
+    # The assembled stack equals JAX's assembly of the same array (copies
+    # of the values; JAX's assembly needs a sharded member axis).
+    jmesh4 = jax_mh.process_spanning_mesh(2, 4)
+    np.testing.assert_array_equal(jax_mh.replicate_to_host(
+        jax_mh.member_stack_from_local(DATA["stack"], jmesh4, e), jmesh4),
+        DATA["stack"])
+    got = str(results(worlds, shape)[0][key(shape, "member_range_error")])
+    if members == 1:
+        assert got == ""
+    else:
+        with pytest.raises(ValueError) as want:
+            jax_mh.process_member_range(jmesh, e - 7)
+        assert got == str(want.value)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_process_spanning_mesh_refuses_like_jax(worlds, world):
+    from correrender_tpu.parallel import multihost as jax_mh
+
+    got = str(worlds[world][0][0]["spanning_mesh_error"])
+    assert got == f"mesh {world}x2 != {world} global devices"
+    with pytest.raises(ValueError, match="mesh 8x2 != 8 global devices"):
+        jax_mh.process_spanning_mesh(8, 2)
+
+
+@pytest.mark.parametrize("store", [".nc", ".zarr"])
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
+def test_multihost_worker_two_processes(tmp_path, store, mesh):
+    # Two gloo processes over tcp://127.0.0.1, each loading only its
+    # members of the store (JAX's test size, 16x24x24 x 8 members).
+    from correrender_tpu_torch.io import writers
+    from correrender_tpu_torch.parallel.multihost_worker import launch
+    from correrender_tpu_torch.utils import fixtures
+
+    data = fixtures.synth_box_ensemble(xs=24, ys=24, zs=16, members=8)
+    path = str(tmp_path / ("ens" + store))
+    if store == ".zarr":
+        writers.write_zarr(path, data[:, None])  # (E, T, Z, Y, X)
+    else:
+        writers.write_netcdf(path, data[:, None])
+    res = launch(processes=2, space=mesh[0], members=mesh[1], dataset=path,
+                 out=str(tmp_path / "mh.json"), device="cpu", timeout=240)
+    # JAX's bars (tests/test_multihost.py, multihost_worker.py): Pearson
+    # within 1e-5 of float64, Spearman within 1e-4, the sharded Pearson
+    # within 1e-5 of the one-process estimator, the reshard exact.
+    assert res["ok"]
+    assert res["num_processes"] == 2
+    assert res["store"] == store[1:]
+    assert res["members_loaded_per_process"] == 8 // mesh[1]
+    assert res["reshard_max_delta"] == 0.0
+    assert res["pearson_max_delta_vs_f64"] < 1e-5
+    assert res["spearman_max_delta_vs_f64"] < 1e-4
+    assert res["pearson_max_delta_vs_singleproc"] < 1e-5
+    # CPU tensors take the plain versions: no kernel launch is counted.
+    assert res["spearman_launches"] == res["singleproc_launches"] == {}
+    with open(os.path.join(os.path.dirname(__file__), "..",
+                           "MULTIHOST_r05.json")) as f:
+        assert set(json.load(f)) <= set(res)
+
+
+# -- the stress runs ---------------------------------------------------------
+
+def stress_row(worlds, world, name):
+    return json.loads(str(worlds[world][0][0][f"stress/{name}"]))
+
+
+def stress_inputs(seed=13):
+    from correrender_tpu_torch.parallel.stress import stack_planes
+
+    grid, e = ranks.STRESS_GRID, ranks.STRESS_MEMBERS
+    stack = stack_planes(grid, e, (0, grid[0]), "cpu", seed=seed).numpy()
+    ref = torch.randn((e,), generator=torch.Generator().manual_seed(14))
+    return stack, ref.numpy()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_stress_stack_depends_on_the_seed_not_the_rank_count(worlds, world):
+    rank0 = worlds[world][0][0]
+    stack13, _ = stress_inputs(13)
+    np.testing.assert_array_equal(rank0["stress/stack13"], stack13)
+    np.testing.assert_array_equal(rank0["stress/stack14"],
+                                  stress_inputs(14)[0])
+    assert not np.array_equal(rank0["stress/stack13"],
+                              rank0["stress/stack14"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_stress_runs_pass_their_checks(worlds, world):
+    for dtype in ("float32", "bfloat16"):
+        row = stress_row(worlds, world, f"pearson_{dtype}")
+        # Float32 moments against float64 (JAX recorded 1.8e-7 at 8 GB);
+        # the port's Pearson bar against JAX, 2e-6.
+        assert row["max_abs_delta_vs_streamed_f64"] <= BARS["pearson"]
+        assert row["z_slabs_checked"] == ranks.STRESS_GRID[0]
+        assert row["devices"] == world
+        assert row["compiled_temp_output_bytes_per_device"] is None
+    assert stress_row(worlds, world, "reshard")["content_max_delta"] == 0.0
+    for measure in ranks.STRESS_MEASURES:
+        row = stress_row(worlds, world, measure)
+        # The same estimator on the same voxels: exact.
+        assert row["max_abs_delta_vs_dense"] == 0.0
+        assert row["timed_launches"] == {}  # no kernel on the CPU
+
+
+def test_stress_rows_have_jax_keys(worlds):
+    from correrender_tpu.parallel import stress as jax_stress
+
+    grid, e = ranks.STRESS_GRID, ranks.STRESS_MEMBERS
+    want = {
+        "pearson_float32": jax_stress.stress_pearson(
+            grid=grid, members=e, dtype="float32", check_fraction=1.0),
+        "reshard": jax_stress.stress_reshard(grid=grid, members=e),
+        "spearman": jax_stress.stress_rank_ksg("spearman", grid=grid,
+                                               members=e),
+    }
+    for name, row in want.items():
+        assert set(row) <= set(stress_row(worlds, 2, name)), name
+        assert row[next(k for k in row if "delta" in k)] <= 2e-7
+
+
+def test_stress_config5_keeps_jax_keys(monkeypatch):
+    from correrender_tpu_torch.app import baseline_configs as bc
+    from correrender_tpu_torch.parallel.stress import stress_config5
+
+    seen = {}
+
+    def fake(grid, members, device):
+        seen.update(grid=grid, members=members, device=device)
+        return {"config": "sharded_batch_render_export", "grid": list(grid),
+                "stack": None, "field": None, "frames": [], "mesh": None}
+
+    monkeypatch.setattr(bc, "config5_sharded_batch_render", fake)
+    row = stress_config5(grid=(16, 12, 8), members=4, device="cpu")
+    assert seen == {"grid": (16, 12, 8), "members": 4, "device": "cpu"}
+    assert row == {"config": "sharded_batch_render_export",
+                   "grid": [16, 12, 8],
+                   "stack_gb": 16 * 12 * 8 * 4 * 4 / 2**30}
+
+
+@pytest.mark.parametrize("measure", sorted(ranks.STRESS_MEASURES))
+@pytest.mark.parametrize("world", [2, 4])
+def test_stress_fields_match_jax(worlds, world, measure):
+    from correrender_tpu.calculators.correlation import (
+        correlate_field as jax_correlate,
+    )
+    from correrender_tpu_torch.calculators.correlation import (
+        correlate_field,
+    )
+
+    stack, ref = stress_inputs()
+    kw = ranks.STRESS_MEASURES[measure]
+    got = worlds[world][0][0][f"stress/field_{measure}"]
+    # The dense port on the whole stack: the same voxels, exactly.
+    np.testing.assert_array_equal(got, correlate_field(
+        torch.from_numpy(stack), torch.from_numpy(ref), measure,
+        **kw).numpy())
+    want = np.asarray(jax_correlate(jnp.asarray(stack), jnp.asarray(ref),
+                                    measure, **kw))
+    np.testing.assert_allclose(got, want, rtol=0, atol=BARS[measure])

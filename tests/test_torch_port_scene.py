@@ -654,9 +654,9 @@ def test_iso_scan_rows_are_independent():
         (geo["g"][1] - geo["g"][0]) / 2)
     rest = (geo["grid_u"], (geo["e_u"], geo["e_v"]), 0.1)
     head = (prep["cvol"], g, geo["coords_v"], geo["coords_u"])
-    full = iso_fast._first_hit_scan(*head, geo["grid_v"], *rest)
+    full = iso_fast.first_hit_scan(*head, geo["grid_v"], *rest)
     rows = torch.arange(0, len(geo["grid_v"]), 7)
-    part = iso_fast._first_hit_scan(
+    part = iso_fast.first_hit_scan(
         *head, np.asarray(geo["grid_v"])[rows.numpy()], *rest)
     for f, p in zip(full, part):
         assert torch.equal(f[rows], p)

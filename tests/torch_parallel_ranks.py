@@ -10,6 +10,7 @@ package, so a rank starts quickly.
 from __future__ import annotations
 
 import datetime
+import json
 import os
 
 import numpy as np
@@ -42,6 +43,27 @@ CAMERAS = {"z": (0.05, 0.2, 0.9), "x": (0.9, 0.1, 0.15),
            "y": (0.1, -0.8, 0.2), "inside": (0.02, 0.01, 0.03)}
 IMAGE = (48, 32)
 CONFIG5_GRID = (12, 10, 8)  # (X, Y, Z)
+
+#: Cases of the sharded isosurface (tests/test_dvr_sharded.py's): name →
+#: (volume, camera position, axial supersample). "iso" is (9, 10, 11):
+#: uneven blocks of every axis on 2 and 4 ranks (a Z-principal camera
+#: pads Z, an X-principal one the resharded X); "iso_even" is (8, 8, 12).
+ISO_CASES = {
+    "z": ("iso", (0.05, 0.1, 0.9), 1),
+    "z_back": ("iso", (0.1, -0.05, -0.9), 1),
+    "z_even": ("iso_even", (0.05, 0.1, 0.9), 1),
+    "x_even": ("iso_even", (0.9, 0.1, 0.05), 1),
+    "x_uneven": ("iso", (0.9, 0.1, 0.05), 1),
+    "y_back": ("iso", (0.1, -0.9, 0.15), 1),
+    "ss2_z": ("iso", (0.05, 0.1, 0.9), 2),
+    "ss2_z_back": ("iso", (0.1, -0.05, -0.9), 2),
+    "ss3_x": ("iso", (0.9, 0.1, 0.05), 3),
+    "inside": ("iso", (0.02, 0.01, 0.03), 1),
+}
+ISO_IMAGE = (48, 36)
+#: The stress runs' sizes ((Z, Y, X), members): Z divisible by 4 ranks.
+STRESS_GRID, STRESS_MEMBERS = (8, 6, 5), 16
+STRESS_MEASURES = {"spearman": {}, "kendall": {}, "mi_kraskov": {"k": 3}}
 SIGMAS = (0.5, 1.0)  # halos of 2 and 3 planes
 
 
@@ -64,7 +86,20 @@ def inputs(seed: int = 0) -> dict:
                              indexing="ij")
     vol = np.exp(-3 * (xx ** 2 + yy ** 2 + zz ** 2)).astype(np.float32)
     return {"stack": stack, "ref": stack[2, 3, 1].copy(), "vol": vol,
-            "vol8": stack[..., 0].copy()}
+            "vol8": stack[..., 0].copy(), "iso": _smooth(rng, (9, 10, 11)),
+            "iso_even": _smooth(rng, (8, 8, 12))}
+
+
+def _smooth(rng, shape) -> np.ndarray:
+    """A smooth random volume (separable box blurs of uniform noise)."""
+    v = rng.uniform(size=shape)
+    for axis in range(3):
+        v = (np.roll(v, 1, axis) + v + np.roll(v, -1, axis)) / 3.0
+    return v.astype(np.float32)
+
+
+def iso_value(vol: np.ndarray) -> float:
+    return float(np.quantile(vol, 0.6))
 
 
 def _save(out: dict, key: str, t) -> None:
@@ -82,6 +117,7 @@ def _checks(space: int, members: int, data: dict, tmp: str, out: dict):
         gather_member_stack,
         gather_z,
         gaussian_blur_3d_sharded,
+        iso_shearwarp_sharded,
         make_mesh,
         pearson_member_sharded,
         reshard_member_to_space,
@@ -164,12 +200,109 @@ def _checks(space: int, members: int, data: dict, tmp: str, out: dict):
                                       background=(0, 0, 0, 0))
         _save(out, tag + f"dvr_{name}_r{dist.get_rank()}", frame)
 
+    # The sharded isosurface, over space.
+    for name, (vname, pos, ss) in ISO_CASES.items():
+        v = torch.from_numpy(data[vname])
+        i0, i1 = block_range(v.shape[0], space, mesh.get_local_rank("space"))
+        frame = iso_shearwarp_sharded(
+            v[i0:i1], Camera(position=pos), iso_value(data[vname]), mesh,
+            image_size=ISO_IMAGE, background=(0, 0, 0, 0),
+            axial_supersample=ss)
+        _save(out, tag + f"iso_{name}_r{dist.get_rank()}", frame)
+
+    # The multi-process helpers, one device a rank.
+    _multihost(mesh, stack, tag, out)
+
     # The export, written by rank 0 and read back by the test.
     field = whole(pearson_member_sharded(block, ref_block, mesh))
     if dist.get_rank() == 0:
         write_netcdf(os.path.join(tmp, f"field_{space}x{members}.nc"),
                      field.numpy(), name="pearson")
     dist.barrier()
+
+
+def _multihost(mesh, stack, tag: str, out: dict) -> None:
+    from correrender_tpu_torch.parallel import (
+        member_series_from_local,
+        member_stack_from_local,
+        process_member_range,
+        replicate_to_host,
+        shard_member_stack,
+    )
+
+    r = dist.get_rank()
+    e = stack.shape[-1]
+    lo, hi = process_member_range(mesh, e)
+    _save(out, tag + f"member_range_r{r}", np.array([lo, hi]))
+    try:
+        process_member_range(mesh, e - 7)
+        _save(out, tag + "member_range_error", "")
+    except ValueError as exc:
+        _save(out, tag + "member_range_error", str(exc))
+    local = stack.numpy()[..., lo:hi]  # this process's members, whole Z
+    block = member_stack_from_local(local, mesh, e)
+    _save(out, tag + f"local_stack_equal_r{r}", bool(torch.equal(
+        block, shard_member_stack(stack, mesh))))
+    series = np.arange(e, dtype=np.float32)
+    sblock = member_series_from_local(series[lo:hi], mesh, e)
+    _save(out, tag + "replicated_stack", replicate_to_host(block, mesh))
+    _save(out, tag + "replicated_series", replicate_to_host(sblock, mesh))
+    try:
+        member_stack_from_local(local[..., :-1], mesh, e)
+        _save(out, tag + "local_stack_error", "")
+    except ValueError as exc:
+        _save(out, tag + "local_stack_error", str(exc))
+
+
+def _spanning_mesh_error(world: int, out: dict) -> None:
+    from correrender_tpu_torch.parallel import process_spanning_mesh
+
+    try:
+        process_spanning_mesh(world, 2, device_type="cpu")
+        _save(out, "spanning_mesh_error", "")
+    except ValueError as exc:
+        _save(out, "spanning_mesh_error", str(exc))
+
+
+def _stress(world: int, out: dict) -> None:
+    """The stress runs at tiny sizes, their stacks and the fields of the
+    stressed program on them."""
+    from correrender_tpu_torch.parallel import (
+        correlate_space_sharded,
+        gather_member_stack,
+        gather_z,
+        make_mesh,
+        space_only_mesh,
+        stress_pearson,
+        stress_rank_ksg,
+        stress_reshard,
+    )
+    from correrender_tpu_torch.parallel.stress import rank_stack
+
+    shape = (world // 2, 2)
+    kw = dict(grid=STRESS_GRID, members=STRESS_MEMBERS, device="cpu")
+    for dtype in ("float32", "bfloat16"):
+        row = stress_pearson(mesh_shape=shape, dtype=dtype,
+                             check_fraction=1.0, **kw)
+        _save(out, f"stress/pearson_{dtype}", json.dumps(row))
+    _save(out, "stress/reshard", json.dumps(stress_reshard(
+        mesh_shape=shape, **kw)))
+    for measure, mkw in STRESS_MEASURES.items():
+        _save(out, f"stress/{measure}", json.dumps(stress_rank_ksg(
+            measure, **kw, **mkw)))
+    mesh = make_mesh(*shape, device_type="cpu")
+    for seed in (13, 14):
+        _save(out, f"stress/stack{seed}", gather_member_stack(rank_stack(
+            STRESS_GRID, STRESS_MEMBERS, mesh, seed=seed), mesh))
+    # The stressed program's fields on stress_rank_ksg's stack and series.
+    smesh = make_mesh(members=1, device_type="cpu")
+    block = rank_stack(STRESS_GRID, STRESS_MEMBERS, smesh, seed=13)
+    gen = torch.Generator().manual_seed(14)
+    ref = torch.randn((STRESS_MEMBERS,), generator=gen)
+    for measure, mkw in STRESS_MEASURES.items():
+        _save(out, f"stress/field_{measure}", gather_z(
+            correlate_space_sharded(block, ref, smesh, measure, **mkw),
+            space_only_mesh(smesh)))
 
 
 def mesh_error_cases(world: int):
@@ -221,6 +354,8 @@ def run(rank: int, world: int, tmp: str) -> None:
         for space, members in MESHES[world]:
             _checks(space, members, data, tmp, out)
         _mesh_errors(world, out)
+        _spanning_mesh_error(world, out)
+        _stress(world, out)
         _config5(tmp, out)
         np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
     finally:
