@@ -253,6 +253,32 @@ Phases, each asserting; any failure exits non-zero:
    what was written, and one 1920×1080 DVR Scene frame of each (K2 and
    K3 once). The write, decode and upload seconds per format and the
    decode MB/s.
+26. The neural correlation calculator (run after phase 20 on phase 17's
+   ``VolumeData``). (a) At config 1's grid (128×128×32 × 100), card
+   against CPU (one thread) on the same inputs: the training set of 4
+   reference points (K1 against its plain version: voxels equal,
+   targets within 2e-5); for the frequency (6) and the hash-grid (8
+   levels × 2 features, 2^15 table, base 4, scale 1.6) SRN on the same
+   carried-over parameters (drawn from one CPU generator) the forward
+   on 2^18 samples of the set and ``compute`` over the whole grid
+   (2e-5), and 10 paired Adam steps of ``train_srn``'s loss on the same
+   batches (each step from the card's parameters on both; 1e-4); MINE
+   with P = 16 pairs, n = 200: 50 paired steps of
+   ``train_mine_batched``'s loss (each pair's bound before and after the
+   step, 1e-4), and the free-running ``train_mine_batched`` of both
+   printed beside each other. (b) At the headline (250³ × 100, Pearson)
+   for the default SRN (frequency 6, hidden 64, latent 32, 2 + 2 layers,
+   ``add_diff``) and the hash-grid SRN, ``train_steps=300``, batch 4096,
+   32 reference points: the fit's seconds with its 32 K1 launches and
+   their CUDA-event time, the training set's and the step loop's share,
+   the final loss; ``compute`` over the grid (median of 5); the Scene's
+   point-move frame at 1920×1080 (``set_reference_point``, one MLP pass,
+   K2 and K3, no K1), held to the direct call (1e-6), its median of 5
+   beside the Pearson calculator's in the same call; the peak memory.
+   (c) A reference-format state file naming ``correlation_vmlp`` with an
+   ``.npz`` preset (under build/neural, deleted after the phase) loads
+   into a Scene on the same ``VolumeData`` and renders; its field equals
+   the calculator built directly from the preset, bit for bit.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2742,6 +2768,24 @@ ERA5_LEVELS = (1000, 975, 950, 925, 900, 875, 850, 825, 800, 775, 750, 700,
                650, 600, 550, 500, 450, 400, 350, 300, 250, 225, 200, 175,
                150, 125, 100, 70, 50, 30, 20, 10, 7, 5, 3, 2, 1)
 DECODER_SIDE = 250
+# Phase 26.
+NEURAL_DIR = "build/neural"
+NEURAL_MODELS = {"frequency": {},
+                 "hash grid": dict(encoding="hash_grid", hash_levels=8,
+                                   hash_features=2, hash_log2_size=15,
+                                   hash_base_res=4, hash_per_level_scale=1.6)}
+NEURAL_TRAIN_STEPS = 300
+NEURAL_REFS = 32
+NEURAL_CHECK_REFS = 4  # config 1's training set
+NEURAL_CHECK_SAMPLES = 1 << 18
+NEURAL_CHECK_STEPS = 10
+NEURAL_CHECK_BATCH = 4096
+MINE_PAIRS, MINE_SAMPLES, MINE_STEPS = 16, 200, 50
+# The SRN forward and field against the CPU: float32 products of another
+# summation order (the CPU tests' bar against JAX); a paired Adam step
+# and the MINE bound after it (the CPU tests' bar).
+ATOL_NEURAL_FORWARD = 2e-5
+ATOL_NEURAL_STEP = 1e-4
 
 
 def analytic_flow(shape_zyx, member: int, members: int, device):
@@ -3889,6 +3933,318 @@ def phase_decoders(dev, card: str) -> None:
           " s")
 
 
+def tree_max_abs(a, b) -> float:
+    """Max |a − b| over the leaves of two parameter trees (b on the CPU)."""
+    from correrender_tpu_torch.models.tree import tree_leaves
+
+    return max(float((x.cpu() - y).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def paired_adam(params, loss_fn, steps: int, lr: float, check, dev):
+    """``steps`` Adam steps from the card's parameters and Adam state, the
+    same step taken on the card and on the CPU: ``loss_fn(p, i, device)``
+    is step i's loss on that device's copy of the same inputs, and
+    ``check(i, card_next, cpu_next, card_loss, cpu_loss)`` returns the
+    step's error. Returns the largest error."""
+    from correrender_tpu_torch.models.mine import adam_step
+    from correrender_tpu_torch.models.tree import tree_map
+
+    def cpu(tree):
+        return tree_map(lambda t: t.cpu(), tree)
+
+    state = (tree_map(torch.zeros_like, params),
+             tree_map(torch.zeros_like, params))
+    worst = 0.0
+    for i in range(steps):
+        t = torch.tensor(float(i + 1))
+        nxt, nstate, loss = adam_step(params, state,
+                                      lambda p: loss_fn(p, i, dev), lr,
+                                      t.to(dev))
+        cnxt, _, closs = adam_step(cpu(params), cpu(state),
+                                   lambda p: loss_fn(p, i, "cpu"), lr, t)
+        worst = max(worst, check(i, nxt, cnxt, float(loss), float(closs)))
+        params, state = nxt, nstate
+    return worst
+
+
+def neural_config1(dev, card: str) -> None:
+    """26 (a): the neural models and calculator at config 1's grid, card
+    against the CPU (one thread) on the same inputs."""
+    from correrender_tpu_torch.calculators.neural import (
+        NeuralCorrelationCalculator)
+    from correrender_tpu_torch.core.fields import GridMetadata, VolumeData
+    from correrender_tpu_torch.models.mine import (
+        CorrelationSRN, MineEstimator, train_mine_batched)
+    from correrender_tpu_torch.models.tree import tree_map
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+
+    (xs, ys, zs), members = CONFIG1_GRID, 100
+    stack = synth_box_stack(xs, ys, zs, members,
+                            torch.Generator(device=dev).manual_seed(11), dev)
+    host = stack.cpu()
+    grid = GridMetadata(xs=xs, ys=ys, zs=zs, es=members)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # see ROADMAP C
+    t0 = time.perf_counter()
+    try:
+        vds = {}
+        for device, data in ((dev, stack), ("cpu", host)):
+            vds[device] = VolumeData(grid, device=device)
+            vds[device].add_field("q", lambda t, e, d=data: d[..., e])
+        calcs = {d: NeuralCorrelationCalculator(field_name="q",
+                                                reference_point=(40, 70, 12))
+                 for d in vds}
+        for d, calc in calcs.items():
+            vds[d].add_calculator(calc)
+        sets = {d: c.training_set(0, NEURAL_CHECK_REFS)
+                for d, c in calcs.items()}
+        assert torch.equal(sets[dev].voxels.cpu(), sets["cpu"].voxels)
+        target_err = max_abs(sets[dev].targets, sets["cpu"].targets.to(dev))
+        print(f"[neural {card}] (a) training set of {NEURAL_CHECK_REFS} "
+              f"reference points at {xs}x{ys}x{zs} x {members}: "
+              f"{len(sets[dev])} samples, voxels equal, targets card vs "
+              f"CPU {target_err:.3e} (bar {ATOL_PEARSON})")
+        assert target_err <= ATOL_PEARSON
+        gen = torch.Generator().manual_seed(12)
+        sample = torch.randint(0, len(sets[dev]), (NEURAL_CHECK_SAMPLES,),
+                               generator=gen)
+        inputs = {dev: sets[dev].take(sample.to(dev))}
+        inputs["cpu"] = tuple(t.cpu() for t in inputs[dev])
+        batches = torch.randint(0, len(sets[dev]), (
+            NEURAL_CHECK_STEPS, NEURAL_CHECK_BATCH), generator=gen)
+        for kind, kw in NEURAL_MODELS.items():
+            model = CorrelationSRN.create(**kw)
+            params = model.init(torch.Generator().manual_seed(13))
+            on = {dev: tree_map(lambda t: t.to(dev), params), "cpu": params}
+            with torch.no_grad():
+                out = {d: model(on[d], *inputs[d][:2]) for d in on}
+            fwd = max_abs(out[dev].cpu(), out["cpu"])
+            fields = {}
+            for d, calc in calcs.items():
+                calc.model, calc.params = model, on[d]
+                fields[d] = calc.compute(0, 0)
+            field = max_abs(fields[dev].cpu(), fields["cpu"])
+            assert fwd <= ATOL_NEURAL_FORWARD and field <= ATOL_NEURAL_FORWARD
+
+            def loss_fn(p, i, device, model=model):
+                pr, pq, tg = (t.to(device) for t in sets[dev].take(
+                    batches[i].to(dev)))
+                return torch.mean((model(p, pr, pq) - tg) ** 2)
+
+            def check(i, nxt, cnxt, loss, closs):
+                return max(tree_max_abs(nxt, cnxt), abs(loss - closs))
+
+            step = paired_adam(on[dev], loss_fn, NEURAL_CHECK_STEPS, 3e-3,
+                               check, dev)
+            print(f"[neural {card}] (a) {kind} SRN: forward on "
+                  f"{NEURAL_CHECK_SAMPLES} samples card vs CPU {fwd:.3e}, "
+                  f"compute over the grid {field:.3e} (bar "
+                  f"{ATOL_NEURAL_FORWARD}); {NEURAL_CHECK_STEPS} paired Adam "
+                  f"steps (batch {NEURAL_CHECK_BATCH}): parameters and loss "
+                  f"{step:.3e} (bar {ATOL_NEURAL_STEP})")
+            assert step <= ATOL_NEURAL_STEP
+
+        # MINE: P independent statistic networks, stacked.
+        est = MineEstimator.create()
+        x = torch.randn(MINE_PAIRS, MINE_SAMPLES, generator=gen)
+        w = torch.linspace(0.95, 0.0, MINE_PAIRS)[:, None]
+        y = w * x + (1 - w) * torch.randn(x.shape, generator=gen)
+        series = {dev: (x.to(dev), y.to(dev)), "cpu": (x, y)}
+        perms = torch.rand(MINE_STEPS + 1, MINE_PAIRS, MINE_SAMPLES,
+                           generator=gen).argsort(-1)
+        inits = [est.init(gen) for _ in range(MINE_PAIRS)]
+        stacked = tree_map(lambda *ls: torch.stack(ls).to(dev), *inits)
+
+        def bound(p, i, device):
+            return est.mi_lower_bound(p, *series[device],
+                                      perms[i].to(device))
+
+        def mine_check(i, nxt, cnxt, loss, closs):
+            with torch.no_grad():
+                after = max_abs(bound(nxt, i + 1, dev).cpu(),
+                                bound(cnxt, i + 1, "cpu"))
+            return max(after, abs(loss - closs) / MINE_PAIRS)
+
+        step = paired_adam(stacked, lambda p, i, d: -bound(p, i, d).sum(),
+                           MINE_STEPS, 1e-3, mine_check, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mi = train_mine_batched(est, *series[dev], steps=MINE_STEPS)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        mi_cpu = train_mine_batched(est, x, y, steps=MINE_STEPS)
+        free = max_abs(mi.cpu(), mi_cpu)
+        print(f"[neural {card}] (a) MINE, {MINE_PAIRS} pairs of "
+              f"{MINE_SAMPLES} samples, {MINE_STEPS} paired Adam steps: "
+              f"each pair's bound card vs CPU {step:.3e} (bar "
+              f"{ATOL_NEURAL_STEP}); train_mine_batched free-running on the "
+              f"card {card_s * 1e3:.1f} ms, MI "
+              f"{[round(v, 4) for v in mi.tolist()]}, card vs CPU "
+              f"{free:.3e} (not held: a ReLU input within a "
+              f"rounding of zero switches sides in one run only)")
+        assert step <= ATOL_NEURAL_STEP
+        assert bool(torch.isfinite(mi).all()) and float(mi[0]) > float(mi[-1])
+    finally:
+        torch.set_num_threads(threads)
+    print(f"[neural {card}] (a) held, {time.perf_counter() - t0:.1f} s with "
+          f"the CPU on one thread")
+
+
+def neural_fit(card: str, calc, label: str) -> None:
+    """26 (b): the headline fit, timed with its K1 launches (CUDA events
+    around each ``correlate_field``) and its step loop."""
+    from correrender_tpu_torch.calculators import neural
+    from correrender_tpu_torch.ops.cuda import _build
+
+    field_events, loop = [], {}
+    correlate, fit_srn = neural.correlate_field, neural.fit_srn
+
+    def timed_field(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = correlate(*args, **kw)
+        end.record()
+        field_events.append((start, end))
+        return out
+
+    def timed_loop(*args, **kw):
+        torch.cuda.synchronize()
+        loop["start"] = time.perf_counter()
+        out = fit_srn(*args, **kw)
+        torch.cuda.synchronize()
+        loop["s"] = time.perf_counter() - loop["start"]
+        return out
+
+    neural.correlate_field, neural.fit_srn = timed_field, timed_loop
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = calc.fit(0, num_reference_points=NEURAL_REFS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        neural.correlate_field, neural.fit_srn = correlate, fit_srn
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    k1_ms = sum(s.elapsed_time(e) for s, e in field_events)
+    print(f"[neural {card}] (b) {label} fit: {fit_s:.3f} s "
+          f"({calc.train_steps} steps, batch 4096, {NEURAL_REFS} reference "
+          f"points): launches {launches}, the {len(field_events)} fields "
+          f"{k1_ms:.3f} ms of CUDA-event time, the training set "
+          f"{loop['start'] - t0:.3f} s, the step loop {loop['s']:.3f} s "
+          f"({calc.train_steps / loop['s']:.1f} steps/s); final loss "
+          f"{loss:.6f}")
+    assert launches == {"pearson": NEURAL_REFS}, launches
+    assert math.isfinite(loss)
+
+
+def phase_neural(dev, card: str, vd) -> None:
+    """26. The neural correlation calculator (see the module docstring)."""
+    import os
+    import shutil
+
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_transfer_function)
+    from correrender_tpu_torch.app.state import Scene
+    from correrender_tpu_torch.calculators.correlation import (
+        CorrelationCalculator)
+    from correrender_tpu_torch.calculators.neural import (
+        NeuralCorrelationCalculator)
+    from correrender_tpu_torch.models.mine import CorrelationSRN
+    from correrender_tpu_torch.render.dvr_fast import dvr_shearwarp
+
+    t_phase = time.perf_counter()
+    neural_config1(dev, card)
+    side = vd.grid.xs
+    p1 = (side // 4, side // 4, side // 2)
+    p2 = (side // 4 + 3, side // 4, side // 2)
+    cam = config1_camera()
+    image_size = HEADLINE_IMAGE
+    base = dict(image_size=image_size, box=vd.grid.render_box(),
+                background=(0, 0, 0, 0))
+
+    def frame_of(calc, label, expect, forbid=()):
+        scene = Scene(vd, [cam])
+        name = scene.add_calculator(calc)
+        scene.transfer_functions[name] = config1_transfer_function(dev)
+        scene.renderers = [{"type": "dvr", "view": 0, "field": name}]
+        ms, _ = scene_frame_check(
+            card, f"(b) {label}: point moved", lambda: scene.render_view(
+                0, image_size=image_size),
+            lambda i: calc.set_reference_point(*(p2 if i % 2 else p1)),
+            lambda: dvr_shearwarp(calc.compute(0, 0), cam,
+                                  scene.tf_for(name), **base),
+            expect=expect, forbid=forbid)
+        vd.remove_calculator(name)
+        return ms
+
+    pearson = frame_of(CorrelationCalculator(field_name="q",
+                                             reference_point=p1,
+                                             output_name="pearson 26"),
+                       "Pearson calculator", FAST_PATH)
+    os.makedirs(NEURAL_DIR, exist_ok=True)
+    try:
+        preset = os.path.join(NEURAL_DIR, "frequency.npz")
+        for kind, kw in NEURAL_MODELS.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            calc = NeuralCorrelationCalculator(
+                field_name="q", reference_point=p1,
+                model=CorrelationSRN.create(**kw),
+                train_steps=NEURAL_TRAIN_STEPS, output_name=f"neural {kind}")
+            calc.bind(vd)
+            neural_fit(card, calc, kind)
+            field = calc.compute(0, 0)
+            assert field.shape == vd.grid.shape_zyx
+            assert bool(torch.isfinite(field).all())
+            compute_ms = median_ms(lambda: calc.compute(0, 0))
+            ms = frame_of(calc, f"{kind} SRN", FAST_PATH[1:],
+                          forbid=("pearson",))
+            peak = torch.cuda.max_memory_allocated(dev)
+            print(f"[neural {card}] (b) {kind} SRN at {side}^3: compute over "
+                  f"the grid {compute_ms:.3f} ms (median of 5); the point-move"
+                  f" frame {ms:.3f} ms against the Pearson calculator's "
+                  f"{pearson:.3f} ms; peak max_memory_allocated "
+                  f"{peak / 2**30:.2f} GiB (the headline stack and the "
+                  f"earlier phases' cache included)")
+            if kind == "frequency":
+                calc.save_weights(preset)
+            del calc, field
+
+        # (c) A reference state file naming the calculator and its preset.
+        direct = NeuralCorrelationCalculator(field_name="q",
+                                             reference_point=p2,
+                                             weights_path=preset)
+        direct.bind(vd)
+        want = direct.compute(0, 0)
+        scene = Scene(vd, [cam])
+        name = scene.add_calculator(NeuralCorrelationCalculator(
+            field_name="q", reference_point=p2, weights_path=preset))
+        scene.renderers = [{"type": "dvr", "view": 0, "field": name}]
+        path = os.path.join(NEURAL_DIR, "state.json")
+        scene.save_state(path, reference_format=True)
+        vd.remove_calculator(name)
+        with open(path) as f:
+            types = [c["type"] for c in json.load(f)["calculators"]]
+        assert "correlation_vmlp" in types, types
+        loaded = Scene.load_state(path, volume_data=vd)
+        img = loaded.render_view(0, image_size=image_size)
+        got = vd.get_field(name)
+        err = max_abs(got, want)
+        print(f"[neural {card}] (c) reference state file with an .npz "
+              f"preset: calculators {types}; loaded field vs the direct "
+              f"calculator's {err:.1e} (bit for bit); frame max alpha "
+              f"{float(img[..., 3].max()):.3f}")
+        assert err == 0.0 and bool(torch.isfinite(img).all())
+        assert float(img[..., 3].max()) > 0
+        vd.remove_calculator(name)
+    finally:
+        shutil.rmtree(NEURAL_DIR, ignore_errors=True)
+    print(f"[neural {card}] the phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     from correrender_tpu_torch.utils.fixtures import synth_box_stack
 
@@ -3935,6 +4291,7 @@ def main() -> None:
     vd, field_name = phase_scene(dev, card, stack)
     phase_views(dev, card, vd, field_name)
     phase_derived(dev, card, vd)
+    phase_neural(dev, card, vd)
     del vd, stack
     phase_config5(dev, card)
     phase_iso_sharded(dev, card)

@@ -25,7 +25,7 @@ reference-point markers and the colour legend. Slices, outlines and
 isosurfaces z-merge by eye distance, and DVR stops at the merged depth.
 State files load and save in the framework's schema or in the reference
 app's (``app/state_ref.py``). Diagram overlays are not ported yet and
-raise ``NotImplementedError`` naming ROADMAP A.9-A.10.
+raise ``NotImplementedError`` naming ROADMAP A.10.
 """
 
 from __future__ import annotations
@@ -271,7 +271,7 @@ class Scene:
                     and r.get("overlay", True)):
                 raise NotImplementedError(
                     f"diagram overlay {r['type']!r}: the diagrams are not "
-                    "ported yet (ROADMAP A.9-A.10); pass "
+                    "ported yet (ROADMAP A.10); pass "
                     "show_diagram_overlays=False")
 
     def _render_iso(self, r, field, cam, box, restriction, image_size,
@@ -566,8 +566,7 @@ class Scene:
         ``app/state_ref.py``). Without ``volume_data`` the file's dataset
         (a filename, or a catalog entry: a reference file names its
         dataset by name, resolved in ``catalog``) is opened on
-        ``device``. A reference file naming a calculator the port lacks
-        raises ``NotImplementedError`` with its ROADMAP item."""
+        ``device``."""
         from correrender_tpu_torch.io import load_catalog, load_volume
         from correrender_tpu_torch.io.catalog import open_dataset
 

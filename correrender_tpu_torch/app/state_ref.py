@@ -1,14 +1,9 @@
 """Reference app-state JSON interchange.
 
 A copy of ``correrender_tpu/app/state_ref.py`` (numpy and stdlib) with
-its imports pointed at the port. It departs from the JAX module in one
-way: a neural calculator type, which the port does not hold yet, raises
-``NotImplementedError`` naming ROADMAP A.12
-(``calculators.base.NOT_PORTED``) before anything is converted, since a
-silently dropped calculator would render another scene. Types the JAX
-package does not know either are skipped with a warning, and the
-velocity family and ``dkl_calculator``, which JAX's converter has no
-branch for, raise ``ValueError``, as there.
+its imports pointed at the port. Unknown types are skipped with a
+warning, and the velocity family and ``dkl_calculator``, which JAX's
+converter has no branch for, raise ``ValueError``, as there.
 
 The reference persists full sessions as JSON (MainAppState.cpp:106-205
 save / :212-423 load): ``global_camera`` + ``views`` (sgl cameras),
@@ -47,7 +42,6 @@ import math
 import numpy as np
 
 from correrender_tpu_torch.calculators.base import (
-    NOT_PORTED,
     calculator_from_settings,
     known_calculator_types,
 )
@@ -306,6 +300,13 @@ _CORRELATION_PASSTHROUGH = (
     "render_restriction_radius", "distance_metric",
 )
 
+#: Neural (deep-learning) correlation calculator type ids
+#: (Calculator.hpp:58-77): all build the one neural calculator; their
+#: reference-only keys ride _ref_extra.
+_NEURAL_TYPE_IDS = ("correlation_torch", "correlation_tiny_cuda_nn",
+                    "correlation_quick_mlp", "correlation_vmlp")
+
+
 def _convert_calculator(type_id: str, state: dict, names: list,
                         warnings: list) -> dict:
     """Reference ``{type, state}`` calculator node → our flat node."""
@@ -316,7 +317,7 @@ def _convert_calculator(type_id: str, state: dict, names: list,
     def take(key):
         return s.pop(key, None)
 
-    if type_id == "correlation":
+    if type_id == "correlation" or type_id in _NEURAL_TYPE_IDS:
         for k in _CORRELATION_PASSTHROUGH:
             if k in s:
                 out[k] = s.pop(k)
@@ -342,6 +343,8 @@ def _convert_calculator(type_id: str, state: dict, names: list,
         if "scalar_field_idx" in s:
             out["scalar_field_name"] = _field_name(
                 names, s.pop("scalar_field_idx"), warnings, type_id)
+        if type_id in _NEURAL_TYPE_IDS and "model_file_path" in s:
+            out["model_preset_path"] = s.pop("model_file_path")
     elif type_id == "binary_operator":
         if "binary_operator_type" in s:
             out["operator_type"] = s.pop("binary_operator_type")
@@ -734,10 +737,6 @@ def convert_reference_state(doc: dict, dataset_field_names: list,
     Returns:
       ``(our_doc, warnings)`` — ``our_doc`` matches
       ``Scene.save_state``'s schema.
-
-    Raises:
-      NotImplementedError: for a calculator type the port lacks, naming
-        its ROADMAP item.
     """
     # app/state.py imports this module.
     from correrender_tpu_torch.app.state import RENDERING_MODE_IDS
@@ -779,10 +778,6 @@ def convert_reference_state(doc: dict, dataset_field_names: list,
     known_calcs = known_calculator_types()
     for node in doc.get("calculators", []) or []:
         type_id = node.get("type", "correlation")
-        if type_id in NOT_PORTED:
-            raise NotImplementedError(
-                f"calculator type {type_id!r} of the reference state is "
-                f"not ported yet (ROADMAP {NOT_PORTED[type_id]})")
         if type_id not in known_calcs:
             # Dropping the node must NOT shift later field indices:
             # the reference's field list would have contained this
@@ -990,6 +985,8 @@ def _settings_key_to_reference(key: str, value, name_to_idx: dict):
         return "comparison_value", value
     if key == "estimator":
         return "estimator_type", ("k-NN" if value == "knn" else "Binned")
+    if key == "model_preset_path":
+        return "model_file_path", value
     if key == "aggregation" and value == "count_range":
         return None, None              # implied by count_lower/upper
     return key, value

@@ -1,9 +1,8 @@
 """Calculators: derived virtual fields (the reference's L3 layer).
 
 Counterpart of ``correrender_tpu/calculators``. Importing the package
-registers every ported calculator type with ``calculators.base``, so
-``calculator_from_settings`` finds it; the neural types wait for ROADMAP
-A.12.
+registers every calculator type with ``calculators.base``, so
+``calculator_from_settings`` finds it.
 """
 
 from correrender_tpu_torch.calculators.base import (
@@ -36,6 +35,9 @@ from correrender_tpu_torch.calculators.residual_color import (
     ResidualColorCalculator,
 )
 from correrender_tpu_torch.calculators.dkl_calculator import DKLCalculator
+from correrender_tpu_torch.calculators.neural import (
+    NeuralCorrelationCalculator,
+)
 
 __all__ = [
     "Calculator",
@@ -56,4 +58,5 @@ __all__ = [
     "SetPredicateCalculator",
     "ResidualColorCalculator",
     "DKLCalculator",
+    "NeuralCorrelationCalculator",
 ]

@@ -2,8 +2,8 @@
 
 Counterpart of ``correrender_tpu/calculators/base.py``. Type ids mirror
 the reference's ``CALCULATOR_TYPE_IDS`` (src/Calculators/Calculator.hpp:
-58-77), so state files stay compatible. The neural ids, which the port
-lacks, raise ``KeyError`` naming the ROADMAP item that ports them.
+58-77), so state files stay compatible. The four neural ids all build
+the one neural calculator (``correlation_vmlp``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -53,11 +53,6 @@ CALCULATOR_NAMES = {
     "dkl_calculator": "KL-Divergence Calculator",
 }
 
-#: The ROADMAP item that ports each reference type id the port lacks.
-NOT_PORTED = dict.fromkeys(
-    ("correlation_torch", "correlation_tiny_cuda_nn",
-     "correlation_quick_mlp", "correlation_vmlp"), "A.12")
-
 #: Working-set budget of a member-stack Z-slab (the JAX DKL calculator's).
 SLAB_BUDGET_BYTES = 256 << 20
 
@@ -75,20 +70,23 @@ def register_calculator_type(type_id: str):
     return wrap
 
 
+#: Legacy neural type ids, each an alias of the neural calculator.
+_NEURAL_ALIASES = ("correlation_torch", "correlation_tiny_cuda_nn",
+                   "correlation_quick_mlp", "correlation_vmlp")
+
+
 def known_calculator_types() -> frozenset:
     """Every type id :func:`calculator_from_settings` accepts."""
-    return frozenset(_TYPE_REGISTRY)
+    return frozenset(_TYPE_REGISTRY) | frozenset(_NEURAL_ALIASES)
 
 
 def calculator_from_settings(type_id: str, settings: dict):
     """Instantiate a calculator from a state-file settings map (the
     factory dispatch of ``MainAppState.cpp:163-197``)."""
+    if type_id in _NEURAL_ALIASES:
+        type_id = "correlation_vmlp"
     cls = _TYPE_REGISTRY.get(type_id)
     if cls is None:
-        if type_id in NOT_PORTED:
-            raise KeyError(
-                f"calculator type {type_id!r} is not ported yet (ROADMAP "
-                f"{NOT_PORTED[type_id]}); ported: {sorted(_TYPE_REGISTRY)}")
         raise KeyError(f"unknown calculator type {type_id!r}; known: "
                        f"{sorted(_TYPE_REGISTRY)}")
     settings = dict(settings)

@@ -1,9 +1,10 @@
 """Hand the state that defines a frame from numpy to the port.
 
 Both packages compute the same frame from the same member stack,
-transfer-function LUT and domain, and camera. Tests build these once as
-numpy arrays and plain values, and give them to the JAX package and,
-through these functions, to the port.
+transfer-function LUT and domain, and camera, and the same neural field
+from the same network parameters. Tests build these once as numpy arrays
+and plain values, and give them to the JAX package and, through these
+functions, to the port.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from correrender_tpu_torch.models.tree import tree_map
 from correrender_tpu_torch.render.camera import Camera
 from correrender_tpu_torch.render.tf import TransferFunction
 
@@ -52,3 +54,12 @@ def camera_from_fields(position, look_at_point, up, fovy, z_near,
         z_near=float(z_near),
         z_far=float(z_far),
     )
+
+
+def srn_params_from_jax(params, device=None):
+    """The port's parameter tree from a JAX SRN's (or MINE's) parameter
+    pytree given as numpy arrays: the same nesting of dicts and lists,
+    each array a tensor of its dtype on ``device``. The layouts are the
+    same (``w`` as ``(in, out)``), so nothing is transposed."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
+                    params)

@@ -43,10 +43,7 @@ from correrender_tpu_torch.app import state_ref
 from correrender_tpu_torch.app.baseline_configs import write_zarr_array
 from correrender_tpu_torch.app.state import Scene
 from correrender_tpu_torch.calculators import base as calc_base
-from correrender_tpu_torch.calculators.base import (
-    NOT_PORTED,
-    calculator_from_settings,
-)
+from correrender_tpu_torch.calculators.base import calculator_from_settings
 from correrender_tpu_torch.calculators.noise import (
     gaussian_blur_3d,
     gaussian_kernel_1d,
@@ -559,15 +556,6 @@ def test_dkl_calculator_matches_jax(estimator, bf16, monkeypatch):
 
 
 # -- settings, registry and the reference app's state files ----------------
-
-def test_not_ported_holds_only_the_neural_types():
-    assert set(NOT_PORTED) == {"correlation_torch",
-                               "correlation_tiny_cuda_nn",
-                               "correlation_quick_mlp", "correlation_vmlp"}
-    assert set(NOT_PORTED.values()) == {"A.12"}
-    for type_id in A7_TYPES:
-        assert type(calculator_from_settings(type_id, {})).type_id == type_id
-
 
 SETTINGS = {
     "velocity": {"u_field": "U", "v_field": "V", "w_field": "W"},

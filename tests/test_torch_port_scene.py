@@ -319,14 +319,6 @@ def test_set_reference_point_marks_the_field_dirty():
     assert not torch.equal(tvd.get_field(name), first)
 
 
-@pytest.mark.parametrize("type_id,item", [("correlation_vmlp", "A.12")])
-def test_unported_calculator_types_raise(type_id, item):
-    with pytest.raises(KeyError, match=f"ROADMAP {item}"):
-        calculator_from_settings(type_id, {})
-    with pytest.raises(KeyError, match="unknown calculator type"):
-        calculator_from_settings("nope", {})
-
-
 # -- Scene.render_view at config 1's grid ----------------------------------
 
 @pytest.fixture(scope="module")

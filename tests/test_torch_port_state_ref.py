@@ -31,7 +31,6 @@ from correrender_tpu.utils import metrics as jmetrics
 
 from correrender_tpu_torch.app import state_ref
 from correrender_tpu_torch.app.state import Scene
-from correrender_tpu_torch.calculators.base import NOT_PORTED
 from correrender_tpu_torch.calculators.correlation import (
     CorrelationCalculator,
 )
@@ -375,19 +374,6 @@ def test_reference_round_trip_through_the_port(tmp_path):
         want = ts.render_view(view, **kw)
         assert float((got - want).abs().max()) <= 1e-6
         assert float(got[..., 3].max()) > 0.5
-
-
-@pytest.mark.parametrize("type_id", sorted(NOT_PORTED))
-def test_reference_calculators_the_port_lacks_raise(tmp_path, type_id):
-    item = NOT_PORTED[type_id]
-    assert item == "A.12"
-    doc = reference_doc(calculators=[correlation_state(),
-                                     {"type": type_id, "state": {}}])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        state_ref.convert_reference_state(doc, ["data"])
-    _, tvd = volumes(ensemble(5, shape=(4, 1, 6, 7, 8)))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Scene.load_state(write_doc(tmp_path, doc), volume_data=tvd)
 
 
 def test_a_reference_state_without_its_dataset_raises(tmp_path):
