@@ -279,6 +279,33 @@ Phases, each asserting; any failure exits non-zero:
    ``.npz`` preset (under build/neural, deleted after the phase) loads
    into a Scene on the same ``VolumeData`` and renders; its field equals
    the calculator built directly from the preset, bit for bit.
+27. The diagrams (run after phase 26 on phase 17's ``VolumeData``). (a)
+   At config 1's grid (128×128×32 × 100, downsample 16: 128 leaves,
+   8128 pairs), card against CPU on the same inputs, the CPU's share in
+   worker processes of one thread each: ``HEBChart`` with the mean,
+   random, halton and plastic samplers in Pearson, mean and plastic in
+   Spearman, Kendall, binned MI and KSG (20 samples), and bayesian (40
+   samples, screening on): the pair values within the measure's bar and
+   the same chords in the same order (pairs tied within the bar may
+   trade places); the bayesian pairs where card and CPU take other
+   branches of a rounding tie, at most 2% of the refined pairs, each
+   between its initial samples and its exhaustive maximum;
+   ``correlate_requests`` on 4096 random pairs for the seven measure
+   ids; ``field_correlation_matrix``; ``distribution_similarity``'s
+   features on 400 points, the t-SNE draw equal to the bit and one step
+   within 1e-4 (the embedding after 50 steps and its DBSCAN labels
+   printed: ROADMAP C); ``time_series_correlation`` pairwise and lagged.
+   (b) At the headline (250³ × 100): the 512-leaf HEB serves of the JAX
+   bench (downsample 32, 130,816 pairs, 250 chords), plastic (20
+   samples, median of 3 after a warm-up) and bayesian (40, screening
+   on; one run after a warm-up); a Scene view of ``dvr`` and each chart
+   at 1920×1080: the first frame with its overlay (the chart and its
+   SVG, the rasterization, the composite), the point-move frame with
+   the cached overlay against the plain frame (median of 5 each), K1, K2
+   and K3 once a frame, every overlay rendered (no cache entry
+   ``False``), the frames apart only inside the overlay's rectangle, a
+   cached frame equal to the first; the field-correlation matrix of two
+   fields; ``render_dock`` of two views; the peak memory.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4245,6 +4272,474 @@ def phase_neural(dev, card: str, vd) -> None:
     print(f"[neural {card}] the phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 27.
+DIAGRAMS_DIR = "build/diagrams"
+# (a) Config 1's grid at downsample 16: 8 × 8 × 2 = 128 leaves, 8128
+# pairs. The charts of each sampler in Pearson, and mean and plastic in
+# the other measures; bars: tests/test_pallas.py:26 for Pearson, the
+# rank and MI measures' card-against-CPU bars of the kernels and
+# binned MI's float32 sums.
+DIAGRAM_CHECK_DOWNSAMPLE = 16
+DIAGRAM_CHECK_MAX_CHORDS = 100
+DIAGRAM_BARS = {"pearson": 2e-5, "spearman": 2e-6, "kendall": 0.0,
+                "mi_binned": 1e-5, "mi_kraskov": 1e-5,
+                "binned_mi_correlation_coefficient": 1e-5,
+                "kmi_correlation_coefficient": 1e-5}
+DIAGRAM_CHECKS = (
+    tuple((method, "pearson", 20) for method in
+          ("mean", "random", "halton", "plastic"))
+    + tuple((method, measure, 20) for method in ("mean", "plastic")
+            for measure in ("spearman", "kendall", "mi_binned",
+                            "mi_kraskov"))
+    + (("bayesian", "pearson", 40),))
+# The CPU's share of a chart, in pair ranges a worker process each: the
+# plastic rank and MI charts take 45-75 s on one thread.
+DIAGRAM_CPU_SPLITS = {("plastic", "kendall"): 6, ("plastic", "mi_binned"): 8,
+                      ("plastic", "mi_kraskov"): 8}
+DIAGRAM_REQUESTS = 4096
+TSNE_POINTS, TSNE_ITERS = 400, 50
+TS_WINDOW = 60
+# (b) The JAX bench's 512-leaf HEB serves (bench.py:796-890) at the
+# headline stack: downsample 32 of 250^3 gives 8^3 leaves, 130,816 pairs.
+DIAGRAM_HEADLINE_DOWNSAMPLE = 32
+DIAGRAM_HEADLINE_LEAVES = 512
+DIAGRAM_HEADLINE_CHORDS = 250
+DIAGRAM_SERVES = {"plastic": dict(sampling_method="plastic", num_samples=20),
+                  "bayesian": dict(sampling_method="bayesian",
+                                   num_samples=40)}
+
+_DIAGRAM_STACK = None
+
+
+def _diagram_worker_init(path: str) -> None:
+    """A CPU reference worker: one thread (ROADMAP C), the stack from
+    the file the parent wrote."""
+    global _DIAGRAM_STACK
+    torch.set_num_threads(1)
+    _DIAGRAM_STACK = torch.from_numpy(np.load(path))
+
+
+def _diagram_cpu_job(job):
+    """One CPU reference job of phase 27 (a) in a worker process."""
+    from correrender_tpu_torch.calculators.correlation import (
+        correlate_requests)
+    from correrender_tpu_torch.diagrams.heb import HEBChart
+
+    kind = job[0]
+    if kind == "requests":
+        _, measure, req_a, req_b = job
+        return correlate_requests(_DIAGRAM_STACK, req_a, req_b,
+                                  measure).numpy()
+    _, kw, lo, hi = job
+    chart = HEBChart(_DIAGRAM_STACK, downsample_factor=DIAGRAM_CHECK_DOWNSAMPLE,
+                     max_chords=DIAGRAM_CHECK_MAX_CHORDS, **kw)
+    iu, ju = chart.candidate_pairs()
+    return chart.pair_values(iu[lo:hi], ju[lo:hi])
+
+
+def chords_match(got, want, bar: float) -> str | None:
+    """None when the chord lists are the same chords in the same order,
+    values within ``bar``; pairs whose magnitudes (the ranking) are within
+    ``bar`` may trade places, and at the cut a pair may stand in for one
+    whose magnitude it ties. Else the first difference."""
+    if len(got) != len(want):
+        return f"{len(got)} chords against {len(want)}"
+    if not want:
+        return None
+    gv = np.abs([c[2] for c in got])
+    wv = np.abs([c[2] for c in want])
+    if np.abs(gv - wv).max() > bar:
+        return f"magnitudes differ by {np.abs(gv - wv).max():.2e}"
+    gd = {(i, j): v for i, j, v in got}
+    wd = {(i, j): v for i, j, v in want}
+    for key in gd.keys() & wd.keys():
+        if abs(gd[key] - wd[key]) > bar:
+            return f"pair {key}: {gd[key]} against {wd[key]}"
+    for key in gd.keys() ^ wd.keys():
+        v = abs(gd.get(key, wd.get(key)))
+        if abs(v - wv.min()) > bar:
+            return f"pair {key} ({v}) on one side only, cut {wv.min()}"
+    return None
+
+
+def bayesian_departures(card: str, stack, chart, flat, want, ks,
+                        bar: float) -> None:
+    """27 (a): the bayesian pairs where the card's GP-UCB parts from the
+    CPU's. The two take other branches of a rounding tie (the refit's
+    argmax over a flat likelihood, a UCB argmax; ROADMAP C): at most 2%
+    of the refined pairs, and both maxima between the pair's 20 initial
+    samples and its exhaustive maximum (the card's)."""
+    from correrender_tpu_torch.diagrams.octree import GridRegion
+    from correrender_tpu_torch.diagrams.sampling import (
+        batched_block_pairs_max, exhaustive_block_pair_max)
+
+    iu, ju, _ = chart._pair_values
+    refined = min(len(iu), max(4 * chart.max_chords, int(np.ceil(
+        chart.screening_top_frac * len(iu)))))
+    bounds = chart._leaf_bounds()
+    ra, rb = bounds[iu[ks]], bounds[ju[ks]]
+    init = batched_block_pairs_max(stack, ra, rb, method="plastic",
+                                   num_samples=20) if len(ks) else []
+    for k, a, b, first in zip(ks, ra, rb, init):
+        truth = exhaustive_block_pair_max(stack, GridRegion(*a),
+                                          GridRegion(*b))
+        print(f"[diagrams {card}] (a) bayesian pair {k} (leaves {iu[k]}, "
+              f"{ju[k]}): card {flat[k]:.6f}, CPU {want[k]:.6f}; initial "
+              f"samples {first:.6f}, exhaustive {truth:.6f}")
+        assert all(first - bar <= v <= truth + 1e-5 for v in (flat[k],
+                                                               want[k]))
+    print(f"[diagrams {card}] (a) bayesian: {len(ks)} of {refined} refined"
+          f" pairs part card from CPU (rounding ties)")
+    assert len(ks) <= 0.02 * refined, len(ks)
+
+
+def diagrams_config1(dev, card: str) -> None:
+    """27 (a): the diagrams at config 1's grid, card against the CPU (one
+    thread a process) on the same inputs."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from correrender_tpu_torch.calculators.correlation import (
+        correlate_requests)
+    from correrender_tpu_torch.core.fields import GridMetadata, VolumeData
+    from correrender_tpu_torch.diagrams.distribution_similarity import (
+        build_features)
+    from correrender_tpu_torch.diagrams.dbscan import dbscan
+    from correrender_tpu_torch.diagrams.heb import HEBChart, top_chords
+    from correrender_tpu_torch.diagrams.matrix import (
+        field_correlation_matrix)
+    from correrender_tpu_torch.diagrams.octree import downsample_fields
+    from correrender_tpu_torch.diagrams.timeseries import (
+        time_series_correlation)
+    from correrender_tpu_torch.diagrams.tsne import tsne
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+
+    t0 = time.perf_counter()
+    (xs, ys, zs), members = CONFIG1_GRID, 100
+    stack = synth_box_stack(xs, ys, zs, members,
+                            torch.Generator(device=dev).manual_seed(27), dev)
+    host = stack.cpu()
+    os.makedirs(DIAGRAMS_DIR, exist_ok=True)
+    path = os.path.join(DIAGRAMS_DIR, "stack.npy")
+    np.save(path, host.numpy())
+    rng = np.random.default_rng(27)
+    shape = np.array([zs, ys, xs])
+    req_a = rng.integers(0, shape, size=(DIAGRAM_REQUESTS, 3))
+    req_b = rng.integers(0, shape, size=(DIAGRAM_REQUESTS, 3))
+    # The main process mostly waits on the card and then on the workers.
+    workers = max(1, min(8, os.cpu_count() or 1))
+    charts = {}
+    with ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=_diagram_worker_init, initargs=(path,)) as pool:
+        # The CPU's jobs go first, then the card works while they run.
+        futures = {}
+        for method, measure, samples in DIAGRAM_CHECKS:
+            kw = dict(sampling_method=method, measure=measure,
+                      num_samples=samples)
+            chart = HEBChart(stack, downsample_factor=DIAGRAM_CHECK_DOWNSAMPLE,
+                             max_chords=DIAGRAM_CHECK_MAX_CHORDS, **kw)
+            pairs = len(chart.candidate_pairs()[0])
+            parts = DIAGRAM_CPU_SPLITS.get((method, measure), 1)
+            edges = np.linspace(0, pairs, parts + 1).astype(int)
+            futures[(method, measure)] = [
+                pool.submit(_diagram_cpu_job, ("pairs", kw, lo, hi))
+                for lo, hi in zip(edges[:-1], edges[1:])]
+            charts[(method, measure)] = chart
+        for measure in DIAGRAM_BARS:
+            futures[("requests", measure)] = [pool.submit(
+                _diagram_cpu_job, ("requests", measure, req_a, req_b))]
+        card_s = {}
+        for key, chart in charts.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            chart.compute_correlations()
+            card_s[key] = time.perf_counter() - t1
+        card_req = {m: correlate_requests(stack, req_a, req_b, m)
+                    for m in DIAGRAM_BARS}
+        cpu = {key: np.concatenate([f.result() for f in fs])
+               for key, fs in futures.items()}
+    os.remove(path)
+    for (method, measure), chart in charts.items():
+        iu, ju, flat = chart._pair_values
+        want = cpu[(method, measure)]
+        bar = DIAGRAM_BARS[measure]
+        nan_equal = np.array_equal(np.isnan(flat), np.isnan(want))
+        diff = np.where(np.isnan(flat) & np.isnan(want), 0.0,
+                        np.abs(flat - want))
+        departs = ~(diff <= bar)
+        keep = ~np.isin(np.arange(len(flat)), np.flatnonzero(departs))
+        want_chords = top_chords(iu, ju, want, chart.correlation_range,
+                                 chart.max_chords)
+        got_chords = chart.chords
+        if method == "bayesian":
+            # Departing pairs leave both chord lists (rounding ties).
+            drop = {(int(iu[k]), int(ju[k])) for k in np.flatnonzero(departs)}
+            got_chords = [c for c in got_chords if c[:2] not in drop]
+            want_chords = [c for c in want_chords if c[:2] not in drop]
+        problem = chords_match(got_chords, want_chords, bar)
+        print(f"[diagrams {card}] (a) HEB {method} {measure} "
+              f"({chart.num_leaves} leaves, {len(flat)} pairs): card "
+              f"{card_s[(method, measure)]:.3f} s; pair values max|card - "
+              f"cpu| {diff[keep].max():.3e} (bar {bar}); {len(chart.chords)}"
+              f" chords, same as the CPU's: {problem is None}"
+              + (f"; {int(departs.sum())} pairs depart" if method ==
+                 "bayesian" else ""))
+        assert nan_equal, (method, measure)
+        assert problem is None, (method, measure, problem)
+        if method == "bayesian":
+            bayesian_departures(card, stack, chart, flat, want,
+                                np.flatnonzero(departs), bar)
+        else:
+            assert not departs.any(), (method, measure, diff.max())
+    for measure, got in card_req.items():
+        pair = [got.cpu().double(),
+                torch.from_numpy(cpu[("requests", measure)]).double()]
+        what = ""
+        if measure.endswith("correlation_coefficient"):
+            # c = sqrt(1 − exp(−2·MI)) has an infinite slope at MI = 0, and
+            # its inverse MI = −½·log(1 − c²) one at c = 1: a pair is held
+            # on the scale where it is well conditioned, c or the MI.
+            assert torch.equal(*(torch.isnan(c) for c in pair)), measure
+            d_c = torch.nan_to_num((pair[0] - pair[1]).abs())
+            mi = [-0.5 * torch.log1p(-c * c) for c in pair]
+            d_mi = (mi[0] - mi[1]).abs()
+            pair = [torch.minimum(d_c, torch.nan_to_num(d_mi, nan=np.inf)),
+                    torch.zeros_like(d_c)]
+            what = " (on c or the MI)"
+        err = max_abs(*pair)
+        print(f"[diagrams {card}] (a) correlate_requests {measure}, "
+              f"{DIAGRAM_REQUESTS} pairs: max|card - cpu|{what} {err:.3e} "
+              f"(bar {DIAGRAM_BARS[measure]})")
+        assert err <= DIAGRAM_BARS[measure], (measure, err)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # see ROADMAP C
+    try:
+        # The field-correlation matrix of two fields of the grid.
+        grid = GridMetadata(xs=xs, ys=ys, zs=zs, es=members)
+        mats = []
+        for device, data in ((dev, stack), ("cpu", host)):
+            vd = VolumeData(grid, device=device)
+            vd.add_field("q", lambda t, e, d=data: d[..., e])
+            vd.add_field("q_shift", lambda t, e, d=data: d[
+                ..., (e + 1) % members])
+            mats.append(field_correlation_matrix(vd)[0])
+        err = max_abs(mats[0].cpu(), mats[1])
+        print(f"[diagrams {card}] (a) field_correlation_matrix (2 fields, "
+              f"1024 voxels): max|card - cpu| {err:.3e} (bar 2e-5)")
+        assert err <= 2e-5
+        # Distribution similarity, 400 points: features, the initial
+        # embedding, one step; after 50 iterations the two runs are
+        # printed (t-SNE's step is unstable at this size: ROADMAP C).
+        feats = [build_features(s, max_points=TSNE_POINTS)[0]
+                 for s in (stack, host)]
+        err = max_abs(feats[0].cpu(), feats[1])
+        assert err == 0.0, err
+        embs = {}
+        for iters in (0, 1, TSNE_ITERS):
+            embs[iters] = [tsne(f, num_iters=iters).cpu() for f in feats]
+        init_equal = torch.equal(*embs[0])
+        one = max_abs(*embs[1])
+        fifty = max_abs(*embs[TSNE_ITERS])
+        labels = []
+        for emb in embs[TSNE_ITERS]:
+            e = emb.numpy()
+            eps = 0.05 * float(np.linalg.norm(e.max(0) - e.min(0)))
+            labels.append(dbscan(e, eps=eps, min_samples=8))
+        agree = float((labels[0] == labels[1]).mean())
+        print(f"[diagrams {card}] (a) distribution similarity, "
+              f"{len(feats[0])} points: features equal; initial embedding "
+              f"equal to the bit: {init_equal}; after 1 iteration max|card "
+              f"- cpu| {one:.3e} (bar 1e-4); after {TSNE_ITERS} iterations "
+              f"{fifty:.3e} of a {float(embs[TSNE_ITERS][1].abs().max()):.1f}"
+              f" embedding, DBSCAN labels equal at {agree:.3f} of the points"
+              f" (not asserted: ROADMAP C)")
+        assert init_equal and one <= 1e-4
+        # Time series: the 128 block-mean series of the grid.
+        series = [downsample_fields(s, DIAGRAM_CHECK_DOWNSAMPLE).reshape(
+            -1, members) for s in (stack, host)]
+        for window in (None, TS_WINDOW):
+            got, want = (time_series_correlation(s, window=window)
+                         for s in series)
+            err = max_abs(got.cpu(), want)
+            print(f"[diagrams {card}] (a) time_series_correlation "
+                  f"{'pairwise' if window is None else f'lag, window {window}'}"
+                  f" {tuple(got.shape)}: max|card - cpu| {err:.3e} (bar 2e-5)")
+            assert err <= 2e-5
+    finally:
+        torch.set_num_threads(threads)
+    print(f"[diagrams {card}] (a) {time.perf_counter() - t0:.1f} s "
+          f"({workers} CPU worker processes of one thread)")
+
+
+def phase_diagrams(dev, card: str, vd, name: str) -> None:
+    """27. The diagrams (see the module docstring)."""
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_transfer_function)
+    from correrender_tpu_torch.app.state import Scene
+    from correrender_tpu_torch.diagrams.heb import HEBChart
+    from correrender_tpu_torch.diagrams.matrix import (
+        field_correlation_matrix)
+    from correrender_tpu_torch.diagrams import raster
+    from correrender_tpu_torch.diagrams.raster import (
+        composite_overlay, rasterize_svg)
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.render.camera import Camera
+
+    t_phase = time.perf_counter()
+    diagrams_config1(dev, card)
+    side, members = vd.grid.xs, vd.grid.es
+    mstack = vd.get_member_stack("q")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for label, kw in DIAGRAM_SERVES.items():
+        t0 = time.perf_counter()
+        chart = HEBChart(mstack, downsample_factor=DIAGRAM_HEADLINE_DOWNSAMPLE,
+                         max_chords=DIAGRAM_HEADLINE_CHORDS, **kw)
+        build_s = time.perf_counter() - t0
+        pairs = chart.num_leaves * (chart.num_leaves - 1) // 2
+        assert chart.num_leaves == DIAGRAM_HEADLINE_LEAVES, chart.num_leaves
+        chart.compute_correlations()  # warm-up
+        times = []
+        for _ in range(3 if label == "plastic" else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chart.compute_correlations()
+            times.append(time.perf_counter() - t0)
+        print(f"[diagrams {card}] (b) HEB {label} serve at {side}^3 x "
+              f"{members}: {chart.num_leaves} leaves, {pairs} pairs, "
+              f"{kw['num_samples']} samples: compute_correlations "
+              f"{statistics.median(times):.3f} s ("
+              + ("median of 3" if len(times) > 1 else "one run")
+              + f" after a warm-up; host clock, the values' copy to the "
+              f"host included); the chart's means and ring {build_s:.3f} s;"
+              f" {len(chart.chords)} chords, the strongest "
+              f"{chart.chords[0][2]:.4f}")
+        assert len(chart.chords) == DIAGRAM_HEADLINE_CHORDS
+        del chart
+    # The Scene: dvr and a diagram node in view 0, at 1920x1080.
+    image_size = HEADLINE_IMAGE
+    p1 = (side // 4, side // 4, side // 2)
+    p2 = (side // 4 + 3, side // 4, side // 2)
+    calc = vd.calculators[name]
+    cam, cam2 = config1_camera(), Camera(position=(0.08, 0.27, 0.86))
+    scene = Scene(vd, [cam, cam2])
+    scene.transfer_functions[name] = config1_transfer_function(dev)
+    for label, kw in DIAGRAM_SERVES.items():
+        node = {"type": "diagram", "view": 0, "field": "q",
+                "downsample": DIAGRAM_HEADLINE_DOWNSAMPLE,
+                "max_chords": DIAGRAM_HEADLINE_CHORDS, **kw}
+        scene.renderers = [{"type": "dvr", "view": 0, "field": name}, node]
+        calc.set_reference_point(*p1)
+        plain = scene.render_view(0, image_size=image_size,
+                                  show_diagram_overlays=False)
+        torch.cuda.synchronize()
+        # The first frame, its parts timed where the Scene calls them:
+        # the chart and its SVG, then the rasterization.
+        parts = {}
+
+        def timed(part, fn):
+            def run(*args, **kwargs):
+                t1 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                parts[part] = time.perf_counter() - t1
+                return out
+            return run
+
+        scene.render_diagram = timed("svg", scene.render_diagram)
+        raster.rasterize_svg = timed("raster", rasterize_svg)
+        try:
+            t0 = time.perf_counter()
+            first = scene.render_view(0, image_size=image_size)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        finally:
+            del scene.render_diagram
+            raster.rasterize_svg = rasterize_svg
+        overlays = list(scene._overlay_cache.values())
+        assert overlays and all(isinstance(o, torch.Tensor)
+                                for o in overlays), "an overlay was dropped"
+        overlay = overlays[-1]
+        svg_s, raster_s = parts["svg"], parts["raster"]
+        comp_ms = median_ms(lambda: composite_overlay(plain, overlay))
+        # Cached-overlay frames against plain frames, the reference point
+        # moved each frame (K1, K2, K3 once a frame).
+        again = scene.render_view(0, image_size=image_size)
+        assert torch.equal(again, first), "a cached frame differs"
+        h, w = overlay.shape[:2]
+        inside = torch.zeros(first.shape[:2], dtype=torch.bool, device=dev)
+        inside[-8 - h:-8, -8 - w:] = True
+        assert torch.equal(first[~inside], plain[~inside])
+        assert float((first - plain).abs()[inside].max()) > 0.3
+        moves = iter(range(10**6))
+
+        def frame(show):
+            calc.set_reference_point(*(p2 if next(moves) % 2 else p1))
+            return scene.render_view(0, image_size=image_size,
+                                     show_diagram_overlays=show)
+
+        frame(True)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        frame(True)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        assert all(launches.get(k, 0) >= 1 for k in FAST_PATH), launches
+        cached_ms = median_ms(lambda: frame(True))
+        plain_ms = median_ms(lambda: frame(False))
+        print(f"[diagrams {card}] (b) Scene {label} overlay at "
+              f"{image_size[0]}x{image_size[1]}: first frame {first_s:.3f} s"
+              f" (the chart and its SVG {svg_s:.3f} s, rasterizing "
+              f"{w}x{h} {raster_s:.3f} s, composite {comp_ms:.3f} ms; host "
+              f"clock); the point-move frame with the cached overlay "
+              f"{cached_ms:.3f} ms against {plain_ms:.3f} ms without "
+              f"(median of 5 each); launches a frame {launches}; overlay "
+              f"rendered, frames differ only in its {w}x{h} rectangle")
+    # The field-correlation matrix of two fields of the headline grid.
+    vd.add_field("q_shift", lambda t, e: mstack[..., (e + 1) % members])
+    field_correlation_matrix(vd, ["q", "q_shift"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m, _ = field_correlation_matrix(vd, ["q", "q_shift"])
+    torch.cuda.synchronize()
+    matrix_s = time.perf_counter() - t0
+    assert bool(torch.isfinite(m).all())
+    print(f"[diagrams {card}] (b) field_correlation_matrix of 2 fields at "
+          f"{side}^3 x {members}: {matrix_s * 1e3:.3f} ms (cached member "
+          f"stacks; host clock); off-diagonal {float(m[0, 1]):.4f}")
+    # The dock: view 0 (dvr and the plastic chart), view 1 (dvr).
+    scene.renderers = [
+        {"type": "dvr", "view": 0, "field": name},
+        {"type": "diagram", "view": 0, "field": "q",
+         "downsample": DIAGRAM_HEADLINE_DOWNSAMPLE,
+         "max_chords": DIAGRAM_HEADLINE_CHORDS,
+         **DIAGRAM_SERVES["plastic"]},
+        {"type": "dvr", "view": 1, "field": name}]
+    scene.dock_layout = [[0, 1]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dock = scene.render_dock(image_size=image_size)
+    torch.cuda.synchronize()
+    dock_first_s = time.perf_counter() - t0
+    dock_ms = median_ms(lambda: scene.render_dock(image_size=image_size))
+    half = image_size[0] // 2
+    assert dock.shape == (image_size[1], image_size[0], 4)
+    assert torch.equal(dock[:, half:], scene.render_view(
+        1, image_size=(half, image_size[1])))
+    assert all(isinstance(o, torch.Tensor)
+               for o in scene._overlay_cache.values())
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[diagrams {card}] (b) render_dock of 2 views at "
+          f"{image_size[0]}x{image_size[1]}: first {dock_first_s:.3f} s "
+          f"(a new overlay size), then {dock_ms:.3f} ms (median of 5); peak"
+          f" max_memory_allocated {peak / 2**30:.2f} GiB (the headline "
+          f"stack and the earlier phases' cache included)")
+    print(f"[diagrams {card}] the phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     from correrender_tpu_torch.utils.fixtures import synth_box_stack
 
@@ -4292,6 +4787,7 @@ def main() -> None:
     phase_views(dev, card, vd, field_name)
     phase_derived(dev, card, vd)
     phase_neural(dev, card, vd)
+    phase_diagrams(dev, card, vd, field_name)
     del vd, stack
     phase_config5(dev, card)
     phase_iso_sharded(dev, card)

@@ -23,9 +23,12 @@ and the exact marcher), ``iso_ray`` (the shear-warp first hit of
 (axis-aligned or oblique), ``domain_outline`` and ``world_map``; the
 reference-point markers and the colour legend. Slices, outlines and
 isosurfaces z-merge by eye distance, and DVR stops at the merged depth.
-State files load and save in the framework's schema or in the reference
-app's (``app/state_ref.py``). Diagram overlays are not ported yet and
-raise ``NotImplementedError`` naming ROADMAP A.10.
+The diagram family (``diagram``, ``scatter_plot``, ``correlation_matrix``,
+``time_series_correlation``, ``distribution_similarity``) renders to SVG
+(:meth:`Scene.render_diagram`), computed on the volume's device, and is
+rasterized and composited over the frame as an overlay; ``render_dock``
+tiles the views. State files load and save in the framework's schema or
+in the reference app's (``app/state_ref.py``).
 """
 
 from __future__ import annotations
@@ -175,6 +178,10 @@ class Scene:
         # each frame, with the same pixels.
         self._textures: dict = {}
         self._legend = (None, None)
+        # Rasterized diagram overlays on the device, an LRU keyed as the
+        # JAX Scene keys it: (node signature, target px, time, member,
+        # dirty epoch) → RGBA tensor, or False for a diagram that failed.
+        self._overlay_cache: OrderedDict = OrderedDict()
 
     # -- construction ------------------------------------------------------
 
@@ -261,18 +268,6 @@ class Scene:
         mask = restriction_mask(vol.shape, box, center, radius, metric,
                                 device=vol.device)
         return torch.where(mask > 0, vol, torch.nan)
-
-    def _check_portable(self, view, show_diagram_overlays):
-        """Raise for what the port cannot draw yet, before any work."""
-        for r in self.renderers:
-            if (show_diagram_overlays and r["view"] == view
-                    and not r.get("hidden")
-                    and r["type"] in self.DIAGRAM_TYPES
-                    and r.get("overlay", True)):
-                raise NotImplementedError(
-                    f"diagram overlay {r['type']!r}: the diagrams are not "
-                    "ported yet (ROADMAP A.10); pass "
-                    "show_diagram_overlays=False")
 
     def _render_iso(self, r, field, cam, box, restriction, image_size,
                     fast_dvr):
@@ -443,10 +438,9 @@ class Scene:
         shared depth buffer (the reference's SceneData.hpp): world maps
         underlay the frame, opaque renderers (isosurfaces, slices,
         outlines) z-merge by eye distance, then DVR clips against the
-        merged depth; the reference-point markers and the legend go on
-        top. Returns ``(H, W, 4)`` straight-alpha RGBA on the volume's
-        device."""
-        self._check_portable(view, show_diagram_overlays)
+        merged depth; the reference-point markers, the legend and the
+        diagram overlays go on top. Returns ``(H, W, 4)`` straight-alpha
+        RGBA on the volume's device."""
         cam = self.views[view]
         vd = self.volume_data
         box = vd.grid.render_box()
@@ -513,7 +507,243 @@ class Scene:
                         image_size=image_size, base_image=image)
         if show_legend:
             image = self._draw_legend(image, view, image_size)
+        if show_diagram_overlays:
+            image = self._composite_diagram_overlays(image, view,
+                                                     image_size)
         return image
+
+    #: Diagram overlays kept by :meth:`_composite_diagram_overlays`.
+    _OVERLAY_CACHE_CAP = 16
+
+    def _composite_diagram_overlays(self, image, view, image_size):
+        """Composite the view's diagram-family nodes over the frame.
+
+        The reference's diagram subsystem is an overlay renderer: charts
+        draw into the 3D view and appear in screenshots and videos
+        (DiagramRenderer.hpp:62-100). Each node's SVG is rasterized at
+        ``overlay_frac`` of the frame's short side (once, then kept on
+        the device in the LRU) and source-over composited at
+        ``overlay_anchor`` (by default the corners in turn) on the
+        frame's device. ``overlay: false`` keeps a node out of frames. A
+        diagram that raises (e.g. a time-series node without a source)
+        drops its overlay with a warning, as the JAX Scene does; its
+        cache entry is ``False``.
+        """
+        nodes = [r for r in self.renderers
+                 if r["view"] == view and not r.get("hidden")
+                 and r["type"] in self.DIAGRAM_TYPES
+                 and r.get("overlay", True)]
+        if not nodes:
+            return image
+        from correrender_tpu_torch.diagrams.raster import (
+            composite_overlay,
+            rasterize_svg,
+        )
+
+        w, h = image_size
+        anchors = ("bottom_right", "bottom_left", "top_right", "top_left")
+        for i, node in enumerate(nodes):
+            frac = float(node.get("overlay_frac", 0.42))
+            target = max(64, int(min(w, h) * frac))
+            field = node.get("field", self.volume_data.field_names[0])
+            key = (repr(sorted(node.items(), key=lambda kv: kv[0])),
+                   target, self.current_time, self.current_member,
+                   self.volume_data.dirty_epoch(field))
+            overlay = self._overlay_cache.get(key)
+            if overlay is None:
+                # Small overlays render from a smaller SVG canvas so
+                # labels keep a readable size relative to the chart.
+                svg_size = int(min(700, max(256, target * 2)))
+                try:
+                    svg = self.render_diagram(node, size=svg_size)
+                except Exception as exc:
+                    logging.getLogger(__name__).warning(
+                        "diagram overlay %s skipped: %s", node["type"], exc)
+                    overlay = False
+                else:
+                    overlay = torch.as_tensor(
+                        rasterize_svg(svg, scale=target / svg_size),
+                        device=image.device)
+                self._overlay_cache[key] = overlay
+                while len(self._overlay_cache) > self._OVERLAY_CACHE_CAP:
+                    self._overlay_cache.popitem(last=False)
+            else:
+                self._overlay_cache.move_to_end(key)
+            if overlay is False:
+                continue
+            image = composite_overlay(
+                image, overlay,
+                anchor=node.get("overlay_anchor", anchors[i % len(anchors)]),
+                opacity=float(node.get("overlay_opacity", 1.0)))
+        return image
+
+    def render_dock(self, image_size=(1024, 768), fast_dvr: bool = True):
+        """Composite every view into one canvas per the dock layout.
+
+        ``dock_layout`` is a list of rows of view indices (persisted in
+        state files); each row shares the canvas height equally and splits
+        its width across its views — the headless analogue of the
+        reference's docked DataView grid (src/Widgets/DataView,
+        ViewManager). Returns ``(H, W, 4)`` on the volume's device.
+        """
+        width, height = image_size
+        layout = self.dock_layout or [[i] for i in range(len(self.views))]
+        canvas = torch.zeros((height, width, 4), dtype=torch.float32,
+                             device=self.volume_data.device)
+        row_h = height // len(layout)
+        for r, row in enumerate(layout):
+            if not row:
+                continue
+            col_w = width // len(row)
+            for c, view_idx in enumerate(row):
+                y0, x0 = r * row_h, c * col_w
+                canvas[y0:y0 + row_h, x0:x0 + col_w] = self.render_view(
+                    int(view_idx), image_size=(col_w, row_h),
+                    fast_dvr=fast_dvr)
+        return canvas
+
+    # -- diagram-family renderers -----------------------------------------
+
+    def render_diagram(self, node: dict, size: int = 700) -> str:
+        """Render one diagram-family renderer node to SVG text.
+
+        The reference draws these as view overlays (DiagramRenderer and
+        friends); headlessly each node renders to its own vector graphic,
+        honoring the node's settings — including everything a reference
+        state file carries through ``load_state`` (measure, per-axis
+        downscaling, sampling method, chord filters, ...). The member
+        stack and the fields stay on the volume's device; the charts
+        compute there.
+        """
+        vd = self.volume_data
+        kind = node["type"]
+        field = node.get("field", vd.field_names[0])
+        time = self.current_time
+        member = self.current_member
+        if kind == "diagram":
+            from correrender_tpu_torch.diagrams.heb import HEBChart
+
+            factor = node.get("downsample_xyz", node.get("downsample", 4))
+            measure_kw = {}
+            if "mi_bins" in node:
+                measure_kw["num_bins"] = int(node["mi_bins"])
+            if "kmi_neighbors" in node:
+                measure_kw["k"] = int(node["kmi_neighbors"])
+            if "absolute" in node:
+                measure_kw["absolute"] = bool(node["absolute"])
+            chart = HEBChart(
+                vd.get_member_stack(field, time),
+                downsample_factor=factor,
+                measure=node.get("measure", "pearson"),
+                sampling_method=node.get("sampling_method", "mean"),
+                num_samples=int(node.get("num_samples", 64)),
+                max_chords=int(node.get("max_chords", 100)),
+                octree_mode=node.get("octree_method", "topdown"),
+                correlation_range=node.get("correlation_range"),
+                cell_distance_range=node.get("cell_distance_range"),
+                color_map=node.get("color_map", "coolwarm"),
+                color_map_variance=node.get("color_map_variance",
+                                            "viridis"),
+                bayesian_screening=bool(node.get("bayesian_screening",
+                                                 True)),
+                **measure_kw,
+            )
+            chart.compute_correlations()
+            if node.get("diagram_type") == "matrix":
+                # The DiagramRenderer's alternative display mode
+                # (CorrelationDefines.hpp:107-109).
+                return chart.render_matrix_svg(size=size)
+            return chart.render_svg(
+                size=size,
+                beta=float(node.get("beta", 0.75)),
+                curve_thickness=float(node.get("curve_thickness", 1.0)),
+                opacity_by_value=bool(node.get("opacity_by_value", True)),
+                curve_opacity=float(node.get("curve_opacity_context", 0.8)),
+                outer_ring_size_pct=float(node.get("outer_ring_size_pct",
+                                                   0.06)),
+            )
+        if kind == "scatter_plot":
+            from correrender_tpu_torch.diagrams.scatter import (
+                render_scatter_svg,
+            )
+
+            field_b = node.get("field_b", field)
+            return render_scatter_svg(
+                vd.get_field(field, time, member).cpu().numpy(),
+                vd.get_field(field_b, time, member).cpu().numpy(),
+                labels=(field, field_b), size=size,
+                point_radius=float(node.get("point_size", 2.0)),
+                point_color=node.get("point_color"),
+            )
+        if kind == "correlation_matrix":
+            from correrender_tpu_torch.diagrams.matrix import (
+                field_correlation_matrix,
+                render_matrix_svg,
+            )
+
+            m, names = field_correlation_matrix(
+                vd, vd.field_names,
+                measure=node.get("correlation_measure_type",
+                                 node.get("measure", "pearson")),
+            )
+            return render_matrix_svg(
+                m, labels=names, size=size,
+                colormap=node.get("color_map", "coolwarm"))
+        if kind == "distribution_similarity":
+            from correrender_tpu_torch.diagrams.distribution_similarity \
+                import distribution_similarity
+            from correrender_tpu_torch.diagrams.scatter import (
+                render_scatter_svg,
+            )
+
+            emb, labels, _ = distribution_similarity(
+                vd.get_member_stack(field, time),
+                mode=node.get("mode", "cell_member_values"),
+                max_points=int(node.get("max_points", 400)),
+                perplexity=float(node.get("perplexity", 30.0)),
+                num_iters=int(node.get("tsne_num_iters", 500)),
+                seed=int(node.get("tsne_seed", 0)),
+                eps=(float(node["dbscan_eps"])
+                     if node.get("dbscan_eps") else None),
+                min_samples=int(node.get("dbscan_min_pts", 8)),
+            )
+            return render_scatter_svg(
+                emb[:, 0], emb[:, 1], labels=("t-SNE 1", "t-SNE 2"),
+                colors=labels, size=size,
+            )
+        if kind == "time_series_correlation":
+            from correrender_tpu_torch.diagrams.octree import (
+                downsample_fields,
+            )
+            from correrender_tpu_torch.diagrams.timeseries import (
+                load_time_series,
+                render_heatmap_svg,
+                time_series_correlation,
+            )
+
+            window = node.get("window")
+            if node.get("path"):
+                series = torch.as_tensor(load_time_series(node["path"]),
+                                         device=vd.device)
+            else:
+                # Region-mean series over the dataset's time axis (the
+                # viewer dock's multi-timestep mode).
+                g = vd.grid
+                if g.ts < 2:
+                    raise ValueError(
+                        "time_series_correlation needs a time-series "
+                        "file ('path') or a multi-timestep dataset")
+                fvol = torch.stack([vd.get_field(field, t, member)
+                                    for t in range(g.ts)], dim=-1)
+                f = max(min(g.xs, g.ys) // 4, 1)
+                series = downsample_fields(fvol, f).reshape(-1, g.ts)
+                series = series[torch.isfinite(series).all(dim=1)]
+            m = time_series_correlation(
+                series, node.get("measure", "pearson"),
+                window=int(window) if window else None)
+            return render_heatmap_svg(
+                m, size=size, colormap=node.get("color_map", "coolwarm"))
+        raise ValueError(f"not a diagram-family renderer: {kind!r}")
 
     # -- state files -------------------------------------------------------
 

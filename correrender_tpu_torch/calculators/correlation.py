@@ -210,6 +210,49 @@ def pearson_streamed(chunks, ref: torch.Tensor) -> torch.Tensor:
     return pearson_from_moments(acc[0], acc[1], acc[2], ref).reshape(spatial)
 
 
+def correlate_requests(
+    stack: torch.Tensor,
+    requests_a,
+    requests_b,
+    measure="pearson",
+    stack_b: torch.Tensor | None = None,
+    **kwargs,
+) -> torch.Tensor:
+    """Request-buffer mode: correlate arbitrary voxel pairs.
+
+    The reference feeds ``RequestData{xi,yi,zi,xj,yj,zj}`` buffers
+    through a 1D compute dispatch (CorrelationMain.glsl,
+    USE_REQUESTS_BUFFER); here the requests index the flattened grid, and
+    the pairs are gathered on the stack's device and correlated there.
+
+    Args:
+      stack: ``(Z, Y, X, n)`` member stack.
+      requests_a / requests_b: ``(R, 3)`` integer voxel coordinates
+        (z, y, x) or ``(R,)`` flat indices, as arrays or tensors.
+      measure: measure id or enum; ``kwargs`` go to ``ops.correlate``.
+      stack_b: optional second stack for pair-field requests.
+
+    Returns:
+      ``(R,)`` correlation values on the stack's device.
+    """
+    m = measure_from_id(measure)
+    stack_b = stack if stack_b is None else stack_b
+    flat = stack.reshape(-1, stack.shape[-1])
+    flat_b = stack_b.reshape(-1, stack_b.shape[-1])
+    ia = _request_index(requests_a, stack.shape[:3], stack.device)
+    ib = _request_index(requests_b, stack_b.shape[:3], stack_b.device)
+    return correlate(flat[ia], flat_b[ib], m, **kwargs)
+
+
+def _request_index(req, shape, device) -> torch.Tensor:
+    """Flat voxel indices of ``(R, 3)`` (z, y, x) coordinates or of
+    ``(R,)`` flat indices, as an int64 tensor on ``device``."""
+    req = torch.as_tensor(req).to(device=device, dtype=torch.int64)
+    if req.dim() == 2:
+        return (req[:, 0] * shape[1] + req[:, 1]) * shape[2] + req[:, 2]
+    return req
+
+
 @register_calculator_type("correlation")
 class CorrelationCalculator(Calculator):
     """Reference-point correlation field as a virtual scalar field

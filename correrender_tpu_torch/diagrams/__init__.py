@@ -1,12 +1,22 @@
-"""Diagram support (reference L5: src/Renderers/Diagram/), the part of
-``correrender_tpu/diagrams`` that needs no JAX, as copies: the 38 named
-colormaps, the SVG canvas and its rasterizer, the radar bar and scatter
-charts, the octree region hierarchy and DBSCAN. The HEB chart, the
-correlation matrix, t-SNE and the time-series charts (ROADMAP A.10) are
-not ported yet.
+"""Diagram/analysis subsystem (reference L5: src/Renderers/Diagram/).
+
+Counterpart of ``correrender_tpu/diagrams``: octree region hierarchies,
+HEB chord diagrams with correlation sampling (incl. batched Bayesian
+optimization), correlation matrices, scatter plots, t-SNE + DBSCAN
+distribution-similarity embeddings, and time-series correlation
+heatmaps. The correlations run on the member stack's device; vector
+output is SVG, drawn on the host (the reference uses NanoVG/Skia/VKVG
+canvases), and rasterized by ``diagrams/raster.py`` for view overlays.
 """
 
 from correrender_tpu_torch.diagrams.octree import Octree, GridRegion
+from correrender_tpu_torch.diagrams.heb import HEBChart
+from correrender_tpu_torch.diagrams.sampling import (
+    SAMPLING_METHODS,
+    sample_block_pair_max,
+)
+from correrender_tpu_torch.diagrams.matrix import correlation_matrix
+from correrender_tpu_torch.diagrams.tsne import tsne
 from correrender_tpu_torch.diagrams.dbscan import dbscan
 from correrender_tpu_torch.diagrams.colormaps import (
     COLOR_MAP_NAMES,
@@ -18,6 +28,11 @@ from correrender_tpu_torch.diagrams.radar import RadarBarChart
 __all__ = [
     "Octree",
     "GridRegion",
+    "HEBChart",
+    "SAMPLING_METHODS",
+    "sample_block_pair_max",
+    "correlation_matrix",
+    "tsne",
     "dbscan",
     "COLOR_MAP_NAMES",
     "colormap_lut",

@@ -199,16 +199,27 @@ def downsample_fields(stack: torch.Tensor, factor) -> torch.Tensor:
     else:
         fz = fy = fx = max(1, int(factor))
     zs, ys, xs, n = stack.shape
-    pz = (-zs) % fz
-    py = (-ys) % fy
-    px = (-xs) % fx
-    if pz or py or px:
-        stack = torch.nn.functional.pad(
-            stack, (0, 0, 0, px, 0, py, 0, pz), value=float("nan"))
-    zs2, ys2, xs2 = (
-        stack.shape[0] // fz,
-        stack.shape[1] // fy,
-        stack.shape[2] // fx,
-    )
-    blocks = stack.reshape(zs2, fz, ys2, fy, xs2, fx, n)
-    return torch.nanmean(blocks, dim=(1, 3, 5))
+    ys2, xs2 = -(-ys // fy), -(-xs // fx)
+    py, px = ys2 * fy - ys, xs2 * fx - xs
+    rows = []
+    # One row of blocks at a time, NaN-padded to whole blocks: the
+    # float64 sums take a copy of the row, not of the stack.
+    for z0 in range(0, zs, fz):
+        row = stack[z0:z0 + fz]
+        pz = fz - row.shape[0]
+        if pz or py or px:
+            row = torch.nn.functional.pad(row, (0, 0, 0, px, 0, py, 0, pz),
+                                          value=float("nan"))
+        rows.append(nanmean_exact(row.reshape(fz, ys2, fy, xs2, fx, n),
+                                  (0, 2, 4)))
+    return torch.stack(rows)
+
+
+def nanmean_exact(x: torch.Tensor, dim) -> torch.Tensor:
+    """``torch.nanmean`` summed in float64 and rounded once to ``x``'s
+    dtype: the card's and the CPU's reduction orders then give the same
+    float32 mean (a k-NN measure of the means turns a one-ulp difference
+    into another neighbour count)."""
+    total = torch.nansum(x, dim=dim, dtype=torch.float64)
+    count = (~torch.isnan(x)).sum(dim=dim, dtype=torch.float64)
+    return (total / count).to(x.dtype)

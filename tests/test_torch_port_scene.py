@@ -554,15 +554,19 @@ def test_depth_merge_and_composite_match_jax():
     assert _depth_merge([]) == (None, None)
 
 
-def test_unported_view_content_raises():
-    # Diagram overlays are the only view content the port cannot draw
-    # yet; the view elements ported since are held to JAX in
-    # tests/test_torch_port_views.py.
-    _, tvd = volumes({"q": ensemble(10)})
-    scene = Scene(tvd)
-    scene.add_renderer("diagram", field="q")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        scene.render_view(0, image_size=(16, 12))
+def test_diagram_node_composites_jaxs_overlay():
+    # A view with a diagram node draws the HEB chart over the frame, as
+    # JAX's Scene does (the other diagram types and the overlays beside a
+    # 3D pass are in tests/test_torch_port_charts.py).
+    jvd, tvd = volumes({"q": ensemble(10)})
+    node = {"downsample": 2, "max_chords": 20}
+    jscene, scene = JaxScene(jvd), Scene(tvd)
+    for sc in (jscene, scene):
+        sc.add_renderer("diagram", field="q", **node)
+    got = scene.render_view(0, image_size=(160, 120))
+    want = np.asarray(jscene.render_view(0, image_size=(160, 120)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    assert float(got[..., 3].max()) == 1.0
 
 
 def test_diagram_nodes_render_without_overlays():
