@@ -306,6 +306,32 @@ Phases, each asserting; any failure exits non-zero:
    ``False``), the frames apart only inside the overlay's rectangle, a
    cached frame equal to the first; the field-correlation matrix of two
    fields; ``render_dock`` of two views; the peak memory.
+28. TF optimization, the metrics, the mesh and the command line (run
+   after phase 27 on phase 17's ``VolumeData``). (a) At config 1's grid
+   (128×128×32 × 100), card against CPU on the same inputs, the CPU's
+   fits in spawned one-thread workers: field A the K1 Pearson field at
+   the first box's centre with the default coolwarm TF over its range,
+   field B the Spearman field (B7) there; ``optimize_tf_ols`` with
+   cholesky, lu, qr, svd, cgls, lsqr and NNLS (R = 64), the LUTs within
+   1e-4 (svd, cgls and lsqr by their voxel loss, 1e-4 relative: the
+   system is singular); ``optimize_tf_gd`` (200 epochs); ``optimize_tf_
+   diffdvr`` (3 epochs at 64×64, config 1's camera): each epoch's
+   gradient at the card's LUT on both (1e-4 relative), the free-running
+   LUTs printed; ``lpips_alex`` on the golden weights against the CPU
+   (1e-5 relative) and ``tests/goldens/lpips_golden.json`` (1e-4),
+   ``lpips_random`` against the CPU; the histogram's counts equal; and
+   ``cli.main(["render", ..., "--device", "cuda"])`` on a config-1
+   NetCDF written under build/tfopt (deleted after the phase): K1, K2
+   and K3 launched, its 1280×720 PNG within the frame bars of the
+   ``--device cpu`` PNG. (b) At the headline (250³ × 100): OLS
+   (cholesky) and GD (200 epochs) from the Pearson calculator's field A
+   to its Spearman field B at R = 64 (median of 3, peak memory);
+   DiffDVR on B at 64×64, three epochs timed one by one (host clock), the
+   loss before and after, the peak, and 60 × the mean later epoch as the
+   estimate of a default fit; ``extract_isosurface`` of A at 0.5; and
+   ``run_perf_sweep`` over ``default_perf_states(full=True)``'s 1920×1080
+   states on the Pearson field plus an exact ``iso_ray`` state, each
+   state's row with its launches.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4740,6 +4766,425 @@ def phase_diagrams(dev, card: str, vd, name: str) -> None:
     print(f"[diagrams {card}] the phase {time.perf_counter() - t_phase:.1f} s")
 
 
+TFOPT_DIR = "build/tfopt"
+TFOPT_SEED = 28
+TFOPT_TF_SIZE = 64  # optimize_tf_ols' and optimize_tf_gd's default R
+TFOPT_DENSE = ("cholesky", "lu", "qr", "svd")
+TFOPT_ITERATIVE = ("cgls", "lsqr")
+TFOPT_GD_EPOCHS = 200
+TFOPT_DIFFDVR_EPOCHS = 3
+TFOPT_DIFFDVR_IMAGE = (64, 64)
+TFOPT_DIFFDVR_DEFAULT_EPOCHS = 60  # optimize_tf_diffdvr's default
+ISO_MESH_VALUE = 0.5
+# Card against CPU on the same fields. The LUTs of the Cholesky, LU and
+# QR solves, NNLS and GD within the CPU tests' LUT bar against JAX. The
+# normal equations at config 1's grid are singular (bins of B's range
+# that no voxel fills), so the SVD cutoff and 200 float32 iterations of
+# CGLS or LSQR settle differently along the near-null directions with
+# the summation order (a voxel permutation on the CPU moved their LUTs by
+# 4e-3 to 9e-2): those three are held by the fit's voxel loss instead,
+# within 1e-4 relative (the permutation moved it by 2e-7 to 1.3e-5).
+# DiffDVR's gradient, at the same LUT on both, within 1e-4 of its
+# largest entry (the card's LUT gather backward adds with atomics).
+ATOL_TFOPT_LUT = 1e-4
+RTOL_TFOPT_LOSS = 1e-4
+TFOPT_BY_LOSS = ("svd", "cgls", "lsqr")
+RTOL_DIFFDVR_GRAD = 1e-4
+RTOL_LPIPS = 1e-5
+ATOL_LPIPS_GOLDEN = 1e-4  # tests/test_lpips.py
+
+
+def _tfopt_inputs(path: str):
+    from correrender_tpu_torch.render.tf import TransferFunction
+
+    with np.load(path) as f:
+        a, b = torch.from_numpy(f["a"]), torch.from_numpy(f["b"])
+        tf_a = TransferFunction(lut=torch.from_numpy(f["lut_a"]),
+                                domain=tuple(float(v) for v in f["domain_a"]))
+        domain_b = tuple(float(v) for v in f["domain_b"])
+    return a, b, tf_a, domain_b
+
+
+def _tfopt_cpu_job(job):
+    """28 (a): one CPU fit of the card's inputs, in a spawned process of
+    one thread (ROADMAP C: the CPU reference runs single-threaded).
+    ``cfg`` carries the sizes, so a process sees its parent's."""
+    torch.set_num_threads(1)
+    from correrender_tpu_torch.app.baseline_configs import config1_camera
+    from correrender_tpu_torch.optim import tf_opt
+
+    kind, path, extra, cfg = job
+    t0 = time.perf_counter()
+    out = {}
+    if kind == "render":
+        from correrender_tpu_torch.app import cli
+
+        cli.main(extra)
+        return kind, out, time.perf_counter() - t0
+    a, b, tf_a, domain_b = _tfopt_inputs(path)
+    size, image = cfg["tf_size"], cfg["image"]
+    if kind == "dense":
+        for solver in TFOPT_DENSE:
+            out[solver] = tf_opt.optimize_tf_ols(
+                a, tf_a, b, size, solver=solver, nonneg=False).lut.numpy()
+        out["nonneg"] = tf_opt.optimize_tf_ols(a, tf_a, b, size).lut.numpy()
+        out["gd"] = tf_opt.optimize_tf_gd(
+            a, tf_a, b, size, epochs=cfg["gd_epochs"]).lut.numpy()
+    elif kind in TFOPT_ITERATIVE:
+        out[kind] = tf_opt.optimize_tf_ols(a, tf_a, b, size,
+                                           solver=kind).lut.numpy()
+    elif kind == "diffdvr_fit":
+        out["diffdvr"] = tf_opt.optimize_tf_diffdvr(
+            a, tf_a, b, config1_camera(), epochs=cfg["epochs"],
+            image_size=image).lut.numpy()
+    elif kind == "diffdvr_grads":
+        from correrender_tpu_torch.render.dvr import dvr_render
+
+        with torch.no_grad():
+            target = dvr_render(a, config1_camera(), tf_a, image_size=image)
+        out["grads"] = [tf_opt.diffdvr_grad(
+            torch.from_numpy(lut), b, target, config1_camera(), domain_b,
+            image)[1].numpy() for lut in extra]
+    return kind, out, time.perf_counter() - t0
+
+
+def tfopt_config1(dev, card: str) -> None:
+    """28 (a): TF optimization, LPIPS, the histogram and the CLI at config
+    1's grid, card against the CPU on the same inputs."""
+    import multiprocessing
+    import os
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    from correrender_tpu_torch.app import cli
+    from correrender_tpu_torch.app.baseline_configs import config1_camera
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+    from correrender_tpu_torch.io import writers
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.optim import tf_opt
+    from correrender_tpu_torch.render.tf import TransferFunction
+    from correrender_tpu_torch.utils import histogram, lpips_alex, metrics
+    from correrender_tpu_torch.utils.fixtures import synth_box_stack
+
+    t0 = time.perf_counter()
+    (xs, ys, zs), members = CONFIG1_GRID, 100
+    stack = synth_box_stack(xs, ys, zs, members,
+                            torch.Generator(device=dev).manual_seed(
+                                TFOPT_SEED), dev)
+    point = (xs // 4, ys // 4, zs // 2)  # config 1's, the first box's centre
+    ref = stack[point[2], point[1], point[0]]
+    _build.reset_launch_counts()
+    field_a = correlate_field(stack, ref, "pearson")
+    field_b = correlate_field(stack, ref, "spearman")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert launches == {"pearson": 1, "spearman": 1}, launches
+    domain_a = tuple(torch.stack(histogram.min_max(field_a)).tolist())
+    domain_b = tuple(torch.stack(histogram.min_max(field_b)).tolist())
+    tf_a = TransferFunction.from_colormap("coolwarm", domain=domain_a,
+                                          device=dev)
+    os.makedirs(TFOPT_DIR, exist_ok=True)
+    inputs = os.path.join(TFOPT_DIR, "inputs.npz")
+    np.savez(inputs, a=field_a.cpu().numpy(), b=field_b.cpu().numpy(),
+             lut_a=tf_a.lut.cpu().numpy(), domain_a=np.array(domain_a),
+             domain_b=np.array(domain_b))
+    nc = os.path.join(TFOPT_DIR, "config1.nc")
+    writers.write_netcdf(nc, stack.permute(3, 0, 1, 2).cpu().numpy()[:, None],
+                         name="q")
+    del stack
+    render_args = ["render", "--dataset", nc, "--measure", "pearson",
+                   "--ref", ",".join(map(str, point)), "--size",
+                   "x".join(map(str, CONFIG1_IMAGE))]
+    png = {d: os.path.join(TFOPT_DIR, f"render_{d}.png")
+           for d in ("cuda", "cpu")}
+    # The CLI's HTML log goes under build/ (the workers inherit it).
+    saved_config = os.environ.get("CORRERENDER_CONFIG_DIR")
+    os.environ["CORRERENDER_CONFIG_DIR"] = os.path.join(TFOPT_DIR, "config")
+    workers = max(1, min(6, os.cpu_count() or 1))
+    cpu = {}
+    with ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cfg = dict(tf_size=TFOPT_TF_SIZE, image=TFOPT_DIFFDVR_IMAGE,
+                   epochs=TFOPT_DIFFDVR_EPOCHS, gd_epochs=TFOPT_GD_EPOCHS)
+        futures = [pool.submit(_tfopt_cpu_job, (kind, inputs, None, cfg))
+                   for kind in ("cgls", "lsqr", "dense", "diffdvr_fit")]
+        futures.append(pool.submit(_tfopt_cpu_job, (
+            "render", None, render_args + ["--device", "cpu", "--output",
+                                           png["cpu"]], cfg)))
+        # The card's fits while the CPU's run.
+        lut = {}
+        for solver in TFOPT_DENSE + TFOPT_ITERATIVE:
+            lut[solver] = tf_opt.optimize_tf_ols(
+                field_a, tf_a, field_b, TFOPT_TF_SIZE, solver=solver,
+                nonneg=False).lut.cpu().numpy()
+        lut["nonneg"] = tf_opt.optimize_tf_ols(
+            field_a, tf_a, field_b, TFOPT_TF_SIZE).lut.cpu().numpy()
+        lut["gd"] = tf_opt.optimize_tf_gd(
+            field_a, tf_a, field_b, TFOPT_TF_SIZE,
+            epochs=TFOPT_GD_EPOCHS).lut.cpu().numpy()
+        # Each epoch's gradient at the card's LUT of that epoch: the CPU
+        # takes it at the same LUT, a job an epoch, while the card goes on.
+        grads, losses, grad_jobs = [], [], []
+
+        def on_epoch(i, value, at, grad):
+            grads.append(grad.cpu().numpy())
+            losses.append(float(value))
+            grad_jobs.append(pool.submit(_tfopt_cpu_job, (
+                "diffdvr_grads", inputs, [at.cpu().numpy()], cfg)))
+
+        lut["diffdvr"] = tf_opt.optimize_tf_diffdvr(
+            field_a, tf_a, field_b, config1_camera(),
+            epochs=TFOPT_DIFFDVR_EPOCHS, image_size=TFOPT_DIFFDVR_IMAGE,
+            on_epoch=on_epoch).lut.cpu().numpy()
+        # The histogram, LPIPS and the CLI frame on the card.
+        counts, _ = histogram.histogram(field_a, normalize=False)
+        want, _ = histogram.histogram(field_a.cpu(), normalize=False)
+        assert torch.equal(counts.cpu(), want), "histogram counts differ"
+        with open("tests/goldens/lpips_golden.json") as f:
+            golden = json.load(f)
+        rng = np.random.default_rng(golden["seed_inputs"])
+        shape = tuple(golden["shape"])
+        img_a = rng.random(shape).astype(np.float32)
+        img_b = np.clip(img_a + 0.1 * rng.standard_normal(shape), 0,
+                        1).astype(np.float32)
+        pairs = {"near": (img_a, img_b),
+                 "invert": (img_a, (1.0 - img_a).astype(np.float32)),
+                 "gray_vs_a": (np.full(shape, 0.5, np.float32), img_a)}
+        params = lpips_alex.synthetic_lpips_params(golden["seed_weights"])
+        lp = {d: lpips_alex.params_to_device(params, d) for d in (dev, "cpu")}
+        lpips_err = []
+        for case, (x, y) in pairs.items():
+            got = lpips_alex.lpips_alex(x, y, lp[dev])
+            cpu_d = lpips_alex.lpips_alex(x, y, lp["cpu"])
+            want_d = golden["cases"][case]["distance"]
+            assert abs(got - want_d) <= ATOL_LPIPS_GOLDEN, (case, got, want_d)
+            assert abs(got - cpu_d) <= RTOL_LPIPS * cpu_d, (case, got, cpu_d)
+            lpips_err.append((case, got, abs(got - cpu_d) / cpu_d,
+                              abs(got - want_d)))
+        r_card = metrics.lpips_random(img_a, img_b, device=dev)
+        r_cpu = metrics.lpips_random(img_a, img_b, device="cpu")
+        assert abs(r_card - r_cpu) <= RTOL_LPIPS * r_cpu, (r_card, r_cpu)
+        _build.reset_launch_counts()
+        cli.main(render_args + ["--device", str(dev), "--output",
+                                png["cuda"]])
+        torch.cuda.synchronize()
+        cli_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        assert all(cli_launches.get(k, 0) >= 1 for k in FAST_PATH), \
+            cli_launches
+        card_s = time.perf_counter() - t0
+        for fut in futures:
+            kind, out, secs = fut.result()
+            cpu.update(out)
+            cpu[f"{kind}_s"] = secs
+        cpu["grads"] = [fut.result()[1]["grads"][0] for fut in grad_jobs]
+    # The comparisons.
+    from PIL import Image
+
+    from correrender_tpu_torch.utils.metrics import ssim
+
+    # The voxel loss of a LUT, from the normal equations in float64.
+    ata, atb, btb = (v.double() for v in tf_opt._normal_equations(
+        field_a.reshape(-1).cpu(), field_b.reshape(-1).cpu(),
+        TransferFunction(lut=tf_a.lut.cpu(), domain=tf_a.domain), domain_b,
+        TFOPT_TF_SIZE))
+    empty = int((torch.diag(ata) == 0).sum())
+
+    def voxel_loss(x):
+        x = torch.from_numpy(x).double()
+        return float(((x * (ata @ x)).sum() - 2 * (x * atb).sum()
+                      + btb.sum()) / field_a.numel() / 4)
+
+    errs = {}
+    for k in TFOPT_DENSE + TFOPT_ITERATIVE + ("nonneg", "gd", "diffdvr"):
+        errs[k] = float(np.abs(lut[k] - cpu[k]).max())
+    loss_errs = {k: abs(voxel_loss(lut[k]) - voxel_loss(cpu[k]))
+                 / voxel_loss(cpu[k]) for k in TFOPT_BY_LOSS}
+    grad_errs = [float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30))
+                 for g, c in zip(grads, cpu["grads"])]
+    frames = {d: np.asarray(Image.open(p), np.float32) / 255.0
+              for d, p in png.items()}
+    frame_err = float(np.abs(frames["cuda"] - frames["cpu"]).max())
+    frame_ssim = ssim(frames["cuda"], frames["cpu"])
+    print(f"[tfopt {card}] (a) config 1's grid {xs}x{ys}x{zs} x {members}: "
+          f"field A Pearson (K1), B Spearman (B7), launches {launches}; "
+          f"R = {TFOPT_TF_SIZE}, {empty} bins of B's range empty")
+    print(f"[tfopt {card}] (a) LUT card vs CPU (one thread), max-abs: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bar {ATOL_TFOPT_LUT} but for {', '.join(TFOPT_BY_LOSS)} and "
+          f"DiffDVR's {TFOPT_DIFFDVR_EPOCHS} free-running epochs, not held);"
+          f" voxel loss card vs CPU, relative: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in loss_errs.items())
+          + f" (bar {RTOL_TFOPT_LOSS})")
+    print(f"[tfopt {card}] (a) DiffDVR at {TFOPT_DIFFDVR_IMAGE[0]}x"
+          f"{TFOPT_DIFFDVR_IMAGE[1]}: losses {[round(v, 6) for v in losses]}; "
+          f"each epoch's gradient at the card's LUT, card vs CPU relative "
+          f"{[f'{e:.3e}' for e in grad_errs]} (bar {RTOL_DIFFDVR_GRAD})")
+    print(f"[tfopt {card}] (a) histogram of A (256 bins) counts equal; "
+          f"lpips_alex on the golden weights (case, card, card vs CPU "
+          f"relative, card vs golden): {lpips_err} (bars {RTOL_LPIPS}, "
+          f"{ATOL_LPIPS_GOLDEN}); lpips_random card {r_card:.6f}, CPU "
+          f"{r_cpu:.6f}")
+    print(f"[tfopt {card}] (a) cli render --device {dev} at "
+          f"{CONFIG1_IMAGE[0]}x{CONFIG1_IMAGE[1]}: launches {cli_launches}; "
+          f"PNG vs --device cpu max-abs {frame_err:.3e} (bar "
+          f"{MAX_ABS_FRAME}), SSIM {frame_ssim:.6f} (bar {MIN_SSIM_FRAME})")
+    print(f"[tfopt {card}] (a) card {card_s:.1f} s; the CPU's jobs "
+          + ", ".join(f"{k[:-2]} {v:.1f} s" for k, v in cpu.items()
+                      if k.endswith("_s"))
+          + " (each epoch's gradient a job of about "
+          f"{statistics.mean(f.result()[2] for f in grad_jobs):.1f} s) in "
+          f"{workers} one-thread workers; (a) "
+          f"{time.perf_counter() - t0:.1f} s")
+    for k in ("cholesky", "lu", "qr", "nonneg", "gd"):
+        assert errs[k] <= ATOL_TFOPT_LUT, (k, errs[k])
+    for k in TFOPT_BY_LOSS:
+        assert loss_errs[k] <= RTOL_TFOPT_LOSS, (k, loss_errs[k])
+    assert all(e <= RTOL_DIFFDVR_GRAD for e in grad_errs), grad_errs
+    assert frame_err <= MAX_ABS_FRAME and frame_ssim >= MIN_SSIM_FRAME
+    assert losses[-1] < losses[0], losses
+    shutil.rmtree(TFOPT_DIR)
+    if saved_config is None:
+        os.environ.pop("CORRERENDER_CONFIG_DIR")
+    else:
+        os.environ["CORRERENDER_CONFIG_DIR"] = saved_config
+
+
+def timed_median(fn, reps: int = 3) -> float:
+    """Median host-clock seconds of ``fn()`` (synchronized) after a
+    warm-up: the fits read the device (their domains) on the way."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_tfopt(dev, card: str, vd, name: str) -> None:
+    """28. TF optimization, the metrics, the mesh and the perf sweep (see
+    the module docstring)."""
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_transfer_function)
+    from correrender_tpu_torch.app.perf import (
+        PerfState, default_perf_states, run_perf_sweep)
+    from correrender_tpu_torch.app.state import Scene
+    from correrender_tpu_torch.calculators.correlation import correlate_field
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.optim import tf_opt
+    from correrender_tpu_torch.render.camera import default_render_box
+    from correrender_tpu_torch.render.dvr import (
+        dvr_render, num_steps_for, world_step_size)
+    from correrender_tpu_torch.render.mesh import extract_isosurface
+
+    t_phase = time.perf_counter()
+    tfopt_config1(dev, card)
+    side, members = vd.grid.xs, vd.grid.es
+    calc = vd.calculators[name]
+    field_a = vd.get_field(name)
+    mstack = vd.get_member_stack("q")
+    x, y, z = calc.reference_point
+    field_b = correlate_field(mstack, mstack[z, y, x], "spearman")
+    tf_a = config1_transfer_function(dev)
+    voxels = field_a.numel()
+    slabs = -(-voxels // (tf_opt._DENSE_WEIGHT_ELEMS // TFOPT_TF_SIZE))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ols_s = timed_median(lambda: tf_opt.optimize_tf_ols(
+        field_a, tf_a, field_b, TFOPT_TF_SIZE, nonneg=False))
+    ols_peak = torch.cuda.max_memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    gd_s = timed_median(lambda: tf_opt.optimize_tf_gd(
+        field_a, tf_a, field_b, TFOPT_TF_SIZE, epochs=TFOPT_GD_EPOCHS))
+    gd_peak = torch.cuda.max_memory_allocated(dev) - base
+    print(f"[tfopt {card}] (b) {side}^3 x {members}, field A the Pearson "
+          f"calculator's (reference {calc.reference_point}), B its Spearman "
+          f"field; {voxels} voxels in {slabs} slabs at R = {TFOPT_TF_SIZE}: "
+          f"optimize_tf_ols (cholesky) {ols_s * 1e3:.3f} ms, peak +"
+          f"{ols_peak / 2**30:.3f} GiB; optimize_tf_gd ({TFOPT_GD_EPOCHS} "
+          f"epochs, Adam) {gd_s * 1e3:.3f} ms, peak +{gd_peak / 2**30:.3f} "
+          f"GiB (median of 3 after a warm-up; host clock, synchronized)")
+    # DiffDVR on field B: each epoch timed (host clock; the loss and the
+    # domain read the device).
+    cam = config1_camera()
+    box = default_render_box(field_a.shape)  # dvr_render's, as the fit's
+    steps = num_steps_for(box[0], box[1], world_step_size(
+        field_a.shape, box[0], box[1], 0.1))
+    stamps, losses = [], []
+
+    def on_epoch(i, value, lut, grad):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(value))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        target = dvr_render(field_a, cam, tf_a, image_size=TFOPT_DIFFDVR_IMAGE)
+    torch.cuda.synchronize()
+    target_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fit = tf_opt.optimize_tf_diffdvr(
+        field_a, tf_a, field_b, cam, epochs=TFOPT_DIFFDVR_EPOCHS,
+        image_size=TFOPT_DIFFDVR_IMAGE, on_epoch=on_epoch)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    diff_peak = torch.cuda.max_memory_allocated(dev) - base
+    # An epoch is the gradient and the Adam step: the gradients end at the
+    # stamps; the fit's own target render comes before the first.
+    epochs = np.diff([t0 + target_s] + stamps)
+    later = float(np.mean(epochs[1:]))
+    final = tf_opt.diffdvr_loss(fit.lut, field_b, target, cam,
+                                fit.domain, TFOPT_DIFFDVR_IMAGE)
+    print(f"[tfopt {card}] (b) DiffDVR on B at {TFOPT_DIFFDVR_IMAGE[0]}x"
+          f"{TFOPT_DIFFDVR_IMAGE[1]}, voxel step 0.1 (about {steps} march "
+          f"steps): the target {target_s:.3f} s; epoch 1 {epochs[0]:.3f} s, "
+          f"epochs 2-{TFOPT_DIFFDVR_EPOCHS} {later:.3f} s each (host clock, "
+          f"synchronized); {TFOPT_DIFFDVR_EPOCHS} epochs {fit_s:.3f} s; loss "
+          f"{losses[0]:.6f} -> {float(final):.6f}; peak +"
+          f"{diff_peak / 2**30:.3f} GiB; a fit at the default "
+          f"{TFOPT_DIFFDVR_DEFAULT_EPOCHS} epochs estimated "
+          f"{TFOPT_DIFFDVR_DEFAULT_EPOCHS * later:.1f} s "
+          f"({TFOPT_DIFFDVR_DEFAULT_EPOCHS} x the mean later epoch, not run)")
+    assert float(final) < losses[0], (float(final), losses)
+    del target, fit
+    t0 = time.perf_counter()
+    verts, tris = extract_isosurface(field_a, ISO_MESH_VALUE)
+    mesh_s = time.perf_counter() - t0
+    assert len(tris) > 0 and np.isfinite(verts).all()
+    print(f"[tfopt {card}] (b) extract_isosurface of A at {ISO_MESH_VALUE}: "
+          f"{len(verts)} vertices, {len(tris)} triangles, {mesh_s:.2f} s "
+          f"(the copy to the host, the g++ library's march, dedupe)")
+    del field_b, mstack
+    # The perf sweep: the default full tier's 1920x1080 states on the
+    # Pearson field, and an exact iso state (the Scene's iso_ray default
+    # is the fast scan, which launches no kernel).
+    states = [s for s in default_perf_states(full=True, fields=[name])
+              if s.image_size == HEADLINE_IMAGE]
+    states.append(PerfState(f"iso_ray_exact_{HEADLINE_IMAGE[0]}x"
+                            f"{HEADLINE_IMAGE[1]}", renderer="iso_ray",
+                            image_size=HEADLINE_IMAGE, field=name,
+                            settings={"quality": "exact"}))
+    scene = Scene(vd, [cam])
+    scene.transfer_functions[name] = tf_a
+    rows = []
+    for state in states:
+        _build.reset_launch_counts()
+        row, = run_perf_sweep(scene, [state])
+        torch.cuda.synchronize()
+        row["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+        rows.append(row)
+        print(f"[tfopt {card}] (b) perf {row}")
+    assert rows[0]["launches"].get("shearwarp_composite", 0) >= 1, rows[0]
+    assert rows[-1]["launches"].get("raymarch_iso", 0) >= 1, rows[-1]
+    print(f"[tfopt {card}] the phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     from correrender_tpu_torch.utils.fixtures import synth_box_stack
 
@@ -4788,6 +5233,7 @@ def main() -> None:
     phase_derived(dev, card, vd)
     phase_neural(dev, card, vd)
     phase_diagrams(dev, card, vd, field_name)
+    phase_tfopt(dev, card, vd, field_name)
     del vd, stack
     phase_config5(dev, card)
     phase_iso_sharded(dev, card)

@@ -47,11 +47,18 @@ class LRUFieldCache:
         self._sizes: dict[Hashable, int] = {}
         self._min_max: dict[Hashable, tuple] = {}
         self.used_bytes = 0
+        # Lookups that found no slab, and that found one (the perf
+        # sweep's cache_misses column).
+        self.hits = 0
+        self.misses = 0
 
     def get(self, key):
         entry = self._entries.get(key)
-        if entry is not None:
-            self._entries.move_to_end(key)
+        if entry is None:
+            self.misses += 1
+            return None
+        self.hits += 1
+        self._entries.move_to_end(key)
         return entry
 
     def put(self, key, tensor: torch.Tensor):

@@ -18,7 +18,9 @@ the same for every voxel. :func:`uniform_like_jax` reproduces
 
 The diagrams draw from the same generator: a shape is counted in
 row-major order, :func:`fold_in_like_jax` is ``jax.random.fold_in`` (the
-hash of the counter pair ``(0, data)`` under the key), and
+hash of the counter pair ``(0, data)`` under the key),
+:func:`split_like_jax` is ``jax.random.split`` (the same hash of
+``(0, i)`` for each new key ``i``), and
 :func:`normal_like_jax` is ``jax.random.normal``: ``√2 · erfinv(v)`` of a
 uniform ``v`` on ``(nextafter(−1, 0), 1)``, with ``erfinv`` and its
 ``log1p`` evaluated in the float32 operations, and the fused
@@ -78,6 +80,15 @@ def fold_in_like_jax(key, data: int) -> tuple:
     o0, o1 = threefry2x32(key, np.zeros(1, np.uint32),
                           np.full(1, data, np.uint32))
     return int(o0[0]), int(o1[0])
+
+
+def split_like_jax(key, n: int) -> list[tuple]:
+    """``jax.random.split(key, n)`` as ``(k0, k1)`` pairs: with
+    ``jax_threefry_partitionable`` (JAX 0.9's default) key ``i`` is the
+    hash of the counter pair ``(0, i)`` under ``key``."""
+    o0, o1 = threefry2x32(key, np.zeros(n, np.uint32),
+                          np.arange(n, dtype=np.uint32))
+    return [(int(a), int(b)) for a, b in zip(o0, o1)]
 
 
 def _shape(shape) -> tuple:

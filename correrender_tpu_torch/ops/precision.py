@@ -23,3 +23,21 @@ def f32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def f32_conv():
+    """Run with cuDNN's TF32 convolutions off, then restore the caller's
+    setting.
+
+    ``torch.backends.cudnn.allow_tf32`` is True by default, so a float32
+    convolution on the card rounds its inputs to 10 mantissa bits, where
+    the JAX package's ``lax.conv`` is float32 (LPIPS distances then drift
+    about 1e-3 relative). Usable as a decorator.
+    """
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved

@@ -34,6 +34,7 @@ from correrender_tpu.io.torchscript import (
     read_torch_weights as jax_read_weights,
 )
 
+from correrender_tpu_torch import native
 from correrender_tpu_torch.io import base, codec, grib, load_volume, rbc
 from correrender_tpu_torch.io import writers
 from correrender_tpu_torch.io.catalog import DataSetInformation
@@ -539,7 +540,7 @@ def test_codec_library_is_built_under_build(tmp_path):
 
 def test_missing_gxx_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(codec, "_BUILD_DIR", tmp_path / "codec")
-    monkeypatch.setattr(codec.shutil, "which", lambda name: None)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         codec.build()
 
