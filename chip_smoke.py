@@ -124,7 +124,8 @@ Phases, each asserting; any failure exits non-zero:
    against a float64 Pearson of every 997th voxel, the median of 5 field
    times, Gvoxels/s, effective GB/s and the bound; B1 per chunk against
    its plain version's time and the three-call torch formulation
-   (``sum``, ``sum`` of squares, ``ref @ chunk``).
+   (``sum``, ``sum`` of squares, ``ref @ chunk``), and the bfloat16
+   chunk's kernel time beside its bound.
 17. The Scene at the headline (run after phase 9, on the same stack):
    a ``VolumeData`` on the card served member by member from the stack
    (the time to build its member stack), a Pearson
@@ -332,6 +333,28 @@ Phases, each asserting; any failure exits non-zero:
    ``run_perf_sweep`` over ``default_perf_states(full=True)``'s 1920×1080
    states on the Pearson field plus an exact ``iso_ray`` state, each
    state's row with its launches.
+29. The interactive viewer (run after phase 28 on phase 17's
+   ``VolumeData``): ``app/viewer.py``'s server on a free loopback port,
+   driven over HTTP as the browser drives it. (a) A server on the card and
+   one on the CPU (all its threads) take the scripted session of
+   ``tests/test_torch_port_viewer.py`` (every op, its guards and errors,
+   the diagrams, the HEB drill-down, state, export, similarity and a TF
+   fit; files under build/viewer, deleted after the phase): at config 1's
+   grid (128×128×32 × 100, 320×180) with Pearson and Spearman, and at the
+   tests' grid (16×16×8 × 16, 96×72) with every measure id (the CPU's
+   Kendall and MI fields at config 1's grid take 27-85 s each); replies
+   equal but for the timing fields (floats within 1e-4, tied chords may
+   trade places), frames within the frame bars. (b) At the headline
+   (250³ × 100, 1920×1080, config 1's camera): the point move (POST
+   ``pick``, GET ``/frame``; median of 5 after a warm-up) with the
+   server's render, overlay and encode split from the ``timing`` op and
+   K1, K2 and K3 launched exactly once a move; a cached frame (no launch,
+   ``X-Server-Frame-Ms: 0.0``); the viewer's device frame and the Scene's
+   point-move frame (CUDA events); ``set_measure spearman`` (B7 once for
+   the TF's domain) and its frame (B7, K2, K3 once); an exact frame
+   (``fast_dvr`` off: B5 once); ``tf_optimize`` (OLS, R = 64) and the
+   frame after it; the peak memory. An HTTP 500 or a launch count off by
+   one fails the phase.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2161,6 +2184,20 @@ def phase_streamed(dev, card: str, errs: dict, stats: dict) -> None:
                   f"bound {b1_bound[0]:.3f} ms ({b1_bound[1]})")
             stats["chunk_moments"] = (launches, kernel_ms, plain_ms) + (
                 b1_bound) + (lib_ms,)
+        else:
+            # The bfloat16 chunk, as the bf16 field streams it: read as
+            # bfloat16, the running sums in float32.
+            flat = a.reshape(e, -1)
+            ref_c = ref[:e]
+            acc.zero_()
+            kernel_ms = median_ms(lambda: chunk_moments_flat(flat, ref_c,
+                                                             acc=acc))
+            b1_bound = bound(2 * e * nvox + 4 * e + 2 * 12 * nvox,
+                             5 * e * nvox)
+            print(f"[streamed {card}] B1 per chunk ({e} x {side}^3 bf16, "
+                  f"accumulating): kernel {kernel_ms:.3f} ms, bound "
+                  f"{b1_bound[0]:.3f} ms ({b1_bound[1]}; "
+                  f"{100 * b1_bound[0] / kernel_ms:.1f}% of it reached)")
         del a, b, chunks, field, acc
     del bufs
 
@@ -5185,6 +5222,600 @@ def phase_tfopt(dev, card: str, vd, name: str) -> None:
     print(f"[tfopt {card}] the phase {time.perf_counter() - t_phase:.1f} s")
 
 
+
+VIEWER_DIR = "build/viewer"
+VIEWER_CHECK_IMAGE = (320, 180)  # (a): the CPU server renders it too
+VIEWER_TESTS_GRID, VIEWER_TESTS_MEMBERS = (16, 16, 8), 16  # the tests' scene
+VIEWER_TESTS_IMAGE = (96, 72)
+VIEWER_MOVES = 5
+VIEWER_TFOPT_SIZE = 64
+VIEWER_FLOAT_BAR = 1e-4  # tests/test_torch_port_viewer.py's FLOAT_BAR
+VIEWER_SVG_ATOL = 1e-3  # SVG numbers: pixel places and printed values
+VIEWER_TIMING = ("render_ms", "overlay_ms", "encode_ms", "total_ms")
+VIEWER_MEASURES = ("pearson", "spearman", "kendall", "mi_binned",
+                   "mi_kraskov", "binned_mi_correlation_coefficient",
+                   "kmi_correlation_coefficient")
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The port's PNGs (8-bit, filter 0 rows) as float32 in [0, 1]."""
+    import zlib
+
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        length = int.from_bytes(data[pos:pos + 4], "big")
+        kind = data[pos + 4:pos + 8]
+        if kind == b"IHDR":
+            header = data[pos + 8:pos + 8 + length]
+        elif kind == b"IDAT":
+            idat += data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    w, h = (int.from_bytes(header[i:i + 4], "big") for i in (0, 4))
+    channels = {2: 3, 6: 4}[header[9]]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + w * channels)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, channels).astype(np.float32) / 255.0
+
+
+class ViewerClient:
+    """A port viewer server on a free loopback port, and its client."""
+
+    def __init__(self, scene, image_size):
+        import threading
+
+        from correrender_tpu_torch.app.viewer import make_server
+
+        self.server, self.app = make_server(scene, port=0,
+                                            image_size=image_size)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.base = "http://%s:%d" % self.server.server_address
+
+    def request(self, path, cmd=None, ctype="application/json"):
+        """(status, content type, body, headers); HTTP errors included."""
+        import urllib.error
+        import urllib.request
+
+        req = self.base + path
+        if cmd is not None:
+            req = urllib.request.Request(
+                req, data=json.dumps(cmd).encode(), method="POST",
+                headers={"Content-Type": ctype})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, r.headers["Content-Type"], r.read(), r.headers
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers["Content-Type"], e.read(), e.headers
+
+    def api(self, cmd: dict) -> dict:
+        status, _, body, _ = self.request("/api", cmd)
+        assert status == 200, (cmd, status, body)
+        return json.loads(body)
+
+    def frame(self):
+        """``(png, X-Server-Frame-Ms)``; an HTTP 500 fails the phase."""
+        status, ctype, body, headers = self.request("/frame")
+        assert status == 200 and ctype == "image/png", (status, body[:300])
+        return body, float(headers["X-Server-Frame-Ms"])
+
+    def image(self) -> np.ndarray:
+        return decode_png(self.frame()[0])
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=60)
+
+
+def viewer_replies_equal(got, want, path="reply"):
+    """Equal JSON replies but for the timing fields and float rounding."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), (path, got, want)
+        for k in want:
+            if k in VIEWER_TIMING:
+                assert got[k] >= 0.0, (path, k, got[k])
+            elif k == "chords":
+                viewer_chords_equal(got[k], want[k])
+            else:
+                viewer_replies_equal(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), (path, got)
+        for i, (g, w) in enumerate(zip(got, want)):
+            viewer_replies_equal(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        assert (math.isnan(got) and math.isnan(want)) or abs(
+            got - want) <= VIEWER_FLOAT_BAR + 1e-12, (path, got, want)
+    else:
+        assert got == want, (path, got, want)
+
+
+def viewer_chords_equal(got: list, want: list) -> None:
+    """The HEB replies' chord rows: the same rows in the same order,
+    values within the bar, but rows whose magnitudes tie within the bar
+    may trade places (and at the cut stand in for each other), as phase
+    27 holds the charts."""
+    bar = VIEWER_FLOAT_BAR + 1e-12
+    assert len(got) == len(want), (got, want)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g["index"] == w["index"] == k
+        assert abs(abs(g["value"]) - abs(w["value"])) <= bar, (g, w)
+    pairs = {(w["a"], w["b"]): w["value"] for w in want}
+    for g in got:
+        v = pairs.get((g["a"], g["b"]))
+        if v is None:  # a tie at the cut
+            assert abs(abs(g["value"]) - abs(want[-1]["value"])) <= bar, g
+        else:
+            assert abs(g["value"] - v) <= bar, (g, v)
+
+
+def viewer_svgs_alike(got: str, want: str, query: str) -> None:
+    """HEB and t-SNE charts by their elements (phase 27 holds their values;
+    a tie may swap two chords, t-SNE moves with any rounding); the others
+    equal but for numbers within VIEWER_SVG_ATOL."""
+    num = re.compile(r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
+    if "kind=heb" in query or "kind=distribution" in query:
+        for tag in ("<path", "<circle", "<title>"):
+            assert got.count(tag) == want.count(tag), (query, tag)
+        return
+    assert num.split(got) == num.split(want), query
+    a = np.array([float(v) for v in num.findall(got)])
+    b = np.array([float(v) for v in num.findall(want)])
+    assert float(np.abs(a - b).max(initial=0.0)) <= VIEWER_SVG_ATOL, query
+
+
+def viewer_legend(app):
+    """``(labels, panel rows and columns, domain)`` of the legend the
+    viewer ``app`` draws over its frame (its ``_draw_overlays``), or None."""
+    from correrender_tpu_torch.render.legend import _layout, _panel_bounds
+
+    scene = app.scene
+    r = next((r for r in scene.renderers if r["view"] == app.view and r[
+        "type"] in ("dvr", "slice", "iso_ray", "iso_raster")), None)
+    if not app.show_legend or r is None:
+        return None
+    field = r.get("field", scene.volume_data.field_names[0])
+    domain = scene.transfer_functions[field].domain
+    w, h = app.image_size
+    x0, y0, bar_h, labels, total_w = _layout(h, w, domain, "right", 12, 8)
+    return ([t for t, _ in labels], _panel_bounds(h, w, x0, y0, bar_h,
+                                                  total_w), domain)
+
+
+def viewer_session(card: str, label: str, clients, dirs, steps) -> dict:
+    """Drive the card's and the CPU's servers with the same ``steps``:
+    ``("api", cmd)``, ``("frame",)``, ``("get", path)``, ``("post", raw
+    body, content type)``, ``("diagram", query)`` or ``("drill", cmd)``
+    (``heb_drill`` into the first row of the last chord lists that names
+    the same region pair on both sides); "{dir}" in a command is each
+    server's own directory. Replies equal; frames within the frame bars,
+    but an isosurface frame as phase 17 holds the iso scan (a ray may hit
+    on one side only on at most 0.1% of the pixels), and where the two
+    legends print other labels (a domain end near 0 printed from its
+    rounding, e.g. |r|'s minimum) the legend panels are left out and the
+    domains held within the float bar. Returns the counts."""
+    from correrender_tpu_torch.utils.metrics import ssim
+
+    def fill(obj, d):
+        return json.loads(json.dumps(obj).replace("{dir}", d))
+
+    def unfill(obj, d):
+        return json.loads(json.dumps(obj).replace(d, "{dir}"))
+
+    stats = {"frames": 0, "ops": 0, "err": 0.0, "ssim": 1.0,
+             "card_s": 0.0, "cpu_s": 0.0}
+    chords = ([], [])
+    renderer, last, frames, slow, relabelled = "dvr", "start", [], [], []
+    for step in steps:
+        if step[0] == "drill":
+            # The first row that names the same region pair on both
+            # sides (tied rows may trade places).
+            pick = next(k for k, (g, w) in enumerate(zip(*chords))
+                        if (g["a"], g["b"]) == (w["a"], w["b"]))
+            step = ("api", {**step[1], "chord": pick})
+        outs, secs = [], []
+        for client, d in zip(clients, dirs):
+            t0 = time.perf_counter()
+            if step[0] == "api":
+                outs.append(unfill(client.api(fill(step[1], d)), d))
+            elif step[0] == "frame":
+                outs.append(client.image())
+            elif step[0] == "post":
+                outs.append(client.request("/api", step[1], step[2])[:3])
+            else:
+                path = step[1] if step[0] == "get" else "/diagram?" + step[1]
+                outs.append(client.request(path)[:3])
+            secs.append(time.perf_counter() - t0)
+        stats["card_s"] += secs[0]
+        stats["cpu_s"] += secs[1]
+        what = (f"frame after {last}" if step[0] == "frame"
+                else step[1].get("op") if step[0] == "api" else step[1])
+        slow.append((secs[1], what))
+        got, want = outs
+        if step[0] == "api":
+            viewer_replies_equal(got, want)
+            assert got.get("ok") is not None, got
+            if "chords" in want:
+                chords = (got["chords"], want["chords"])
+            if step[1]["op"] == "set_renderer" and got["ok"]:
+                renderer = step[1]["renderer"]
+            last = json.dumps(step[1])
+            stats["ops"] += 1
+        elif step[0] == "frame":
+            assert got.shape == want.shape
+            keep = np.ones(got.shape[:2], bool)
+            legends = [viewer_legend(c.app) for c in clients]
+            if None not in legends and legends[0][0] != legends[1][0]:
+                for _, (by0, by1, bx0, bx1), _ in legends:
+                    keep[by0:by1, bx0:bx1] = False
+                for a, b in zip(legends[0][2], legends[1][2]):
+                    assert abs(a - b) <= VIEWER_FLOAT_BAR, (what, legends)
+                relabelled.append((legends[0][0], legends[1][0]))
+            diff = np.abs(got - want)[keep]
+            err, sim = float(diff.max()), ssim(got, want)
+            off = float((diff > MAX_ABS_FRAME).any(axis=-1).mean())
+            held = sim >= MIN_SSIM_FRAME and (
+                err <= MAX_ABS_FRAME
+                or (renderer in ("iso_ray", "iso_raster")
+                    and off <= 1.0 - MIN_ISO_SCAN_FOUND_EQUAL))
+            frames.append((what, renderer, err, off, sim, held))
+            if renderer not in ("iso_ray", "iso_raster"):
+                stats["err"] = max(stats["err"], err)
+            stats["ssim"] = min(stats["ssim"], sim)
+            stats["frames"] += 1
+        else:
+            assert got[:2] == want[:2], (step, got[:2], want[:2])
+            if step[0] == "diagram" and got[0] == 200:
+                viewer_svgs_alike(got[2].decode(), want[2].decode(), step[1])
+            elif got[1] == "application/json" or step[0] == "post":
+                viewer_replies_equal(json.loads(got[2]), json.loads(want[2]))
+            else:
+                assert got[2] == want[2], step
+            stats["ops"] += 1
+    iso = [f for f in frames if f[1] in ("iso_ray", "iso_raster")]
+    print(f"[viewer {card}] {label}: {stats['ops']} requests and "
+          f"{stats['frames']} frames, card and CPU servers: replies equal "
+          f"(floats within {VIEWER_FLOAT_BAR}); frames but the isosurface's "
+          f"max-abs {stats['err']:.3e} (bar {MAX_ABS_FRAME}), least SSIM "
+          f"{stats['ssim']:.6f} (bar {MIN_SSIM_FRAME}); the isosurface "
+          f"frames: " + "; ".join(
+              f"{f[1]} max-abs {f[2]:.3e}, {100 * f[3]:.4f}% of the pixels "
+              f"over {MAX_ABS_FRAME}" for f in iso)
+          + f" (bar {100 * (1 - MIN_ISO_SCAN_FOUND_EQUAL):.1f}%); card "
+          f"{stats['card_s']:.1f} s, CPU {stats['cpu_s']:.1f} s (slowest on "
+          f"the CPU: " + ", ".join(f"{w} {t:.1f} s" for t, w in sorted(
+              slow, key=lambda r: -r[0])[:4]) + f"); {len(relabelled)} "
+          f"frames with other legend labels, their panels left out: "
+          f"{relabelled}")
+    bad = [f for f in frames if not f[5]]
+    for f in bad:
+        print(f"[viewer {card}] {label}: frame not held: {f}")
+    assert not bad, bad
+    return stats
+
+
+def viewer_scenes(dev, data: np.ndarray, camera):
+    """A Pearson ``dvr`` scene of the (E, Z, Y, X) ensemble on the card and
+    one on the CPU, from the same arrays."""
+    from correrender_tpu_torch.app.state import Scene
+    from correrender_tpu_torch.calculators.correlation import (
+        CorrelationCalculator)
+    from correrender_tpu_torch.core.fields import GridMetadata, VolumeData
+
+    es, zs, ys, xs = data.shape
+    out = []
+    for device in (dev, "cpu"):
+        vd = VolumeData(GridMetadata(xs=xs, ys=ys, zs=zs, es=es),
+                        device=device)
+        vd.add_field("q", lambda t, e: data[e])
+        vd.add_field("r", lambda t, e: data[(e + 1) % es])
+        scene = Scene(vd, [camera])
+        name = scene.add_calculator(CorrelationCalculator(
+            "q", reference_point=(xs // 4, ys // 4, zs // 2)))
+        scene.add_renderer("dvr", field=name)
+        out.append(scene)
+    return out
+
+
+def viewer_steps(image_size, downsample: int, measures,
+                 iso_raster_frame: bool = True) -> list:
+    """The scripted session of tests/test_torch_port_viewer.py: every op
+    of the viewer's command surface, its guards and the diagrams."""
+    w, h = image_size
+    frame = ("frame",)
+    steps = [("get", "/"), ("get", "/api?op=info"),
+             ("get", "/api?op=set_option&key=legend&value=false"),
+             ("post", {"op": "set_option", "key": "legend", "value": False},
+              "text/plain"),
+             ("get", "/nothing"), frame,
+             ("api", {"op": "orbit", "dtheta": 0.4, "dphi": 0.1}), frame,
+             ("api", {"op": "zoom", "factor": 0.9}), frame,
+             ("api", {"op": "pick_scroll", "amount": 0.3}),
+             ("api", {"op": "pick", "px": w // 2, "py": h // 2}), frame,
+             ("api", {"op": "pick_scroll", "amount": 0.3}), frame,
+             ("api", {"op": "pick", "px": w, "py": h}),
+             ("api", {"op": "pick", "px": w // 2 + 7, "py": h // 2 - 5})]
+    for m in measures:
+        steps += [("api", {"op": "set_measure", "measure": m}), frame]
+    steps += [
+        ("api", {"op": "set_measure", "measure": "pearson"}),
+        ("api", {"op": "set_field", "field": "nope"}),
+        ("api", {"op": "set_field", "field": "r"}), frame,
+        ("api", {"op": "set_field", "field": "q"}),
+        ("api", {"op": "set_colormap", "colormap": "viridis"}), frame,
+        ("api", {"op": "set_colormap", "colormap": "nope"}),
+        ("api", {"op": "set_tf", "opacity_points": [[0, 0.7], [0.5, 0.05],
+                                                    [1, 0.7]]}), frame,
+        ("api", {"op": "set_tf", "opacity_points": [[0.9, 0.1],
+                                                    [0.1, 0.2]]}),
+        ("api", {"op": "set_tf", "color_points": [
+            [0.0, [0.1, 0.2, 0.9]], [0.5, [0.9, 0.9, 0.9]],
+            [1.0, [0.9, 0.1, 0.1]]]}), frame,
+        ("api", {"op": "set_tf", "color_points": [[0.5, [0, 0, 0]]]}),
+        ("api", {"op": "tf_save", "path": "{dir}/tf.xml"}),
+        ("api", {"op": "set_tf", "color_points": None,
+                 "opacity_points": None}),
+        ("api", {"op": "tf_load", "path": "{dir}/tf.xml"}), frame,
+        ("api", {"op": "tf_load", "xml": "<NotATF/>"}),
+        ("api", {"op": "set_absolute", "value": True}), frame,
+        ("api", {"op": "set_absolute", "value": False}),
+        ("api", {"op": "set_renderer", "renderer": "iso_ray"}),
+        ("api", {"op": "set_renderer_option", "key": "iso_value",
+                 "value": 0.5}), frame,
+        ("api", {"op": "set_renderer", "renderer": "iso_raster"}),
+        *([frame] if iso_raster_frame else []),
+        ("api", {"op": "set_renderer", "renderer": "slice"}),
+        ("api", {"op": "set_renderer_option", "key": "axis",
+                 "value": "y"}),
+        ("api", {"op": "set_renderer_option", "key": "position",
+                 "value": 0.4}), frame,
+        ("api", {"op": "set_renderer", "renderer": "nope"}),
+        ("api", {"op": "set_renderer", "renderer": "dvr"}),
+        ("api", {"op": "set_renderer_option", "key": "attenuation",
+                 "value": 60.0}), frame,
+        ("api", {"op": "set_view", "view": 0}),
+        ("api", {"op": "set_view", "view": 3}),
+        ("api", {"op": "set_time", "time": 5}),
+        ("api", {"op": "set_member", "member": 2}),
+        ("api", {"op": "set_option", "key": "legend", "value": False}),
+        frame,
+        ("api", {"op": "set_option", "key": "legend", "value": True}),
+        ("api", {"op": "set_option", "key": "fast_dvr", "value": False}),
+        frame,
+        ("api", {"op": "set_option", "key": "fast_dvr", "value": True}),
+        ("api", {"op": "checkpoint_save", "name": "home"}),
+        ("api", {"op": "orbit", "dtheta": -0.7, "dphi": -0.2}), frame,
+        ("api", {"op": "checkpoint_restore", "name": "home"}), frame,
+        ("api", {"op": "checkpoint_restore", "name": "nope"}),
+        ("api", {"op": "save_state", "path": "{dir}/state.json"}),
+        ("api", {"op": "export_field", "path": "{dir}/field.nc"}),
+        ("api", {"op": "similarity", "field_a": "q", "field_b": "r"}),
+        ("api", {"op": "tf_optimize", "field_src": "q", "field_dst": "r",
+                 "tf_size": 16}),
+        ("api", {"op": "tf_optimize", "field_src": "q", "field_dst": "r",
+                 "tf_size": 7}),
+        ("api", {"op": "heb_chords", "downsample": downsample,
+                 "num_samples": 6, "sampling_method": "mean"}),
+        ("drill", {"op": "heb_drill", "downsample": downsample,
+                   "num_samples": 6, "sampling_method": "mean"}), frame,
+        ("diagram", f"kind=heb&downsample={downsample}&num_samples=6"
+                    "&sampling_method=mean"),
+        ("api", {"op": "heb_drill", "chord": 9999,
+                 "downsample": downsample, "num_samples": 6,
+                 "sampling_method": "mean"}),
+        ("api", {"op": "heb_pop"}),
+        ("api", {"op": "heb_reset"}), frame,
+        ("api", {"op": "heb_pop"}),
+        ("diagram", f"kind=heb&downsample={downsample}&num_samples=6"
+                    "&sampling_method=mean&max_chords=30"),
+        ("diagram", "kind=scatter&field_b=r"), ("diagram", "kind=matrix"),
+        ("diagram", "kind=distribution&max_points=100"),
+        ("diagram", "kind=timeseries"), ("diagram", "kind=nope"),
+        ("api", {"op": "warp_core_breach"}), ("api", {"op": "timing"}),
+        ("api", {"op": "info"}),
+    ]
+    return steps
+
+
+def viewer_config1(dev, card: str) -> None:
+    """29 (a): the scripted session on the card's and the CPU's servers, at
+    config 1's grid and at the tests' grid."""
+    import os
+    import shutil
+
+    from correrender_tpu_torch.app.baseline_configs import config1_camera
+    from correrender_tpu_torch.utils.fixtures import synth_box_ensemble
+
+    t0 = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    dirs = [os.path.abspath(os.path.join(VIEWER_DIR, d))
+            for d in ("card", "cpu")]
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    # The CPU's iso_render frame at config 1's grid took 13.0 s (PR 16,
+    # call 2); it is held at the tests' grid.
+    runs = [("config 1's grid", CONFIG1_GRID, 100, VIEWER_CHECK_IMAGE, 16,
+             ("pearson", "spearman"), False),
+            ("the tests' grid", VIEWER_TESTS_GRID, VIEWER_TESTS_MEMBERS,
+             VIEWER_TESTS_IMAGE, 4, VIEWER_MEASURES, True)]
+    for label, (xs, ys, zs), members, image, downsample, measures, iso in runs:
+        data = synth_box_ensemble(xs=xs, ys=ys, zs=zs, members=members)
+        clients = [ViewerClient(sc, image) for sc in viewer_scenes(
+            dev, data, config1_camera())]
+        try:
+            viewer_session(
+                card, f"(a) {label} {xs}x{ys}x{zs} x {members}, {image[0]}x"
+                f"{image[1]}, measures {', '.join(measures)}", clients, dirs,
+                viewer_steps(image, downsample, measures, iso))
+        finally:
+            for c in clients:
+                c.close()
+    shutil.rmtree(VIEWER_DIR)
+    torch.set_num_threads(threads)
+    print(f"[viewer {card}] (a) {time.perf_counter() - t0:.1f} s (the CPU "
+          f"server on {os.cpu_count()} threads)")
+
+
+def viewer_launches(expect: dict, label: str) -> dict:
+    """The launches since the last reset; fails unless they are ``expect``
+    exactly (every other kernel 0)."""
+    from correrender_tpu_torch.ops.cuda import _build
+
+    got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert got == expect, (label, got, expect)
+    return got
+
+
+def phase_viewer(dev, card: str, vd, name: str) -> None:
+    """29. The viewer on the card (see the module docstring)."""
+    from correrender_tpu_torch.app.baseline_configs import config1_camera
+    from correrender_tpu_torch.app.state import Scene
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.render.pipeline import render_correlation_fast
+
+    t_phase = time.perf_counter()
+    viewer_config1(dev, card)
+    side, members = vd.grid.xs, vd.grid.es
+    calc = vd.calculators[name]
+    scene = Scene(vd, [config1_camera()])
+    scene.add_renderer("dvr", field=name)
+    w, h = HEADLINE_IMAGE
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    client = ViewerClient(scene, HEADLINE_IMAGE)
+    try:
+        t0 = time.perf_counter()
+        client.frame()
+        first_s = time.perf_counter() - t0
+        # The point moves: POST pick, then GET /frame.
+        pixels = [(w // 2 + i * w // 80, h // 2 - i * h // 90)
+                  for i in range(VIEWER_MOVES + 1)]
+        rows = []
+        for i, (px, py) in enumerate(pixels):
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            reply = client.api({"op": "pick", "px": px, "py": py})
+            png, header_ms = client.frame()
+            trip = (time.perf_counter() - t0) * 1e3
+            assert reply["ok"], reply
+            viewer_launches({"pearson": 1, "classify_to_cf": 1,
+                             "shearwarp_composite": 1}, "point move")
+            timing = client.api({"op": "timing"})
+            if i:  # the first move is a warm-up
+                rows.append((trip, timing, len(png), header_ms))
+        img = decode_png(png)
+        assert img.shape == (h, w, 4) and float(img[..., 3].max()) > 0.5
+        trips = [r[0] for r in rows]
+        split = {k: statistics.median(r[1][k] for r in rows)
+                 for k in VIEWER_TIMING}
+        print(f"[viewer {card}] (b) {side}^3 x {members} at {w}x{h}: the "
+              f"first frame {first_s:.3f} s; point move (POST pick, GET "
+              f"/frame) over loopback, {VIEWER_MOVES} after a warm-up: round "
+              f"trip median {statistics.median(trips):.1f} ms (min "
+              f"{min(trips):.1f}, max {max(trips):.1f}); the server's split, "
+              f"medians: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                       split.items())
+              + f"; PNG {statistics.median(r[2] for r in rows) / 1e6:.2f} "
+              f"MB; launches a move K1 1, K2 1, K3 1 (exactly, every move)")
+        # A cached frame: no launch, no server time.
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        cached, header_ms = client.frame()
+        cached_ms = (time.perf_counter() - t0) * 1e3
+        viewer_launches({}, "cached frame")
+        assert cached == png and header_ms == 0.0, header_ms
+        assert all(v == 0.0 for k, v in client.api({"op": "timing"}).items()
+                   if k in VIEWER_TIMING)
+        # The device part alone, and the Scene's frame of the same move
+        # (phase 17 (a)), on the same scene.
+        stack = vd.get_member_stack(calc.field_name)
+        tf = scene.tf_for(name)
+        cam = scene.views[0]
+        fused_ms = median_ms(lambda: render_correlation_fast(
+            stack, calc.reference_point, cam, tf, calc.measure,
+            image_size=HEADLINE_IMAGE, background=(0.0, 0.0, 0.0, 0.0),
+            intermediate_scale=1.0))
+        points = [calc.reference_point, tuple(
+            c + 3 * (i == 0) for i, c in enumerate(calc.reference_point))]
+        moves = iter(range(10**6))
+
+        def scene_move():
+            calc.set_reference_point(*points[next(moves) % 2])
+            return scene.render_view(0, image_size=HEADLINE_IMAGE)
+
+        scene_ms = median_ms(scene_move)
+        print(f"[viewer {card}] (b) beside it (CUDA events, median of 5): "
+              f"the viewer's device frame (render_correlation_fast at scale "
+              f"1.0) {fused_ms:.3f} ms; the Scene's point-move frame (phase "
+              f"17 (a)) {scene_ms:.3f} ms")
+        # The measure switch: the TF's new domain computes the field once
+        # (the calculator), the frame once more (the fused path).
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        assert client.api({"op": "set_measure", "measure": "spearman"})["ok"]
+        switch_ms = (time.perf_counter() - t0) * 1e3
+        switch = viewer_launches({"spearman": 1}, "set_measure")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        client.frame()
+        spearman_ms = (time.perf_counter() - t0) * 1e3
+        spearman = viewer_launches({"spearman": 1, "classify_to_cf": 1,
+                                    "shearwarp_composite": 1},
+                                   "spearman frame")
+        spearman_split = client.api({"op": "timing"})
+        # Exact quality: the Scene's exact DVR (B5) on the Pearson field
+        # the TF rebuild computed.
+        assert client.api({"op": "set_measure", "measure": "pearson"})["ok"]
+        assert client.api({"op": "set_option", "key": "fast_dvr",
+                           "value": False})["ok"]
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        client.frame()
+        exact_ms = (time.perf_counter() - t0) * 1e3
+        exact = viewer_launches({"raymarch_dvr": 1}, "exact frame")
+        exact_split = client.api({"op": "timing"})
+        assert client.api({"op": "set_option", "key": "fast_dvr",
+                           "value": True})["ok"]
+        # One TF fit: the correlation field's TF to the raw field's DVR.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reply = client.api({"op": "tf_optimize", "field_src": "q",
+                            "field_dst": name, "method": "ols",
+                            "tf_size": VIEWER_TFOPT_SIZE})
+        tfopt_s = time.perf_counter() - t0
+        assert reply["ok"], reply
+        assert bool(torch.isfinite(scene.transfer_functions[name].lut).all())
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        fitted, _ = client.frame()
+        fitted_ms = (time.perf_counter() - t0) * 1e3
+        viewer_launches({"pearson": 1, "classify_to_cf": 1,
+                         "shearwarp_composite": 1}, "fitted-TF frame")
+        assert decode_png(fitted).shape == (h, w, 4)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        print(f"[viewer {card}] (b) cached frame {cached_ms:.1f} ms round "
+              f"trip, launches none, X-Server-Frame-Ms {header_ms}; "
+              f"set_measure spearman {switch_ms:.1f} ms (launches {switch}: "
+              f"the TF's domain), its frame {spearman_ms:.1f} ms (launches "
+              f"{spearman}; split " + ", ".join(
+                  f"{k} {spearman_split[k]}" for k in VIEWER_TIMING)
+              + f"); exact frame {exact_ms:.1f} ms (launches {exact}; split "
+              + ", ".join(f"{k} {exact_split[k]}" for k in VIEWER_TIMING)
+              + f"); tf_optimize OLS R = {VIEWER_TFOPT_SIZE} from 'q' to "
+              f"{name!r} {tfopt_s:.3f} s, then its frame {fitted_ms:.1f} ms; "
+              f"peak +{peak / 2**30:.3f} GiB over "
+              f"{base / 2**30:.3f} GiB allocated (round trips on the host "
+              f"clock, over loopback)")
+    finally:
+        client.close()
+    print(f"[viewer {card}] the phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     from correrender_tpu_torch.utils.fixtures import synth_box_stack
 
@@ -5234,6 +5865,7 @@ def main() -> None:
     phase_neural(dev, card, vd)
     phase_diagrams(dev, card, vd, field_name)
     phase_tfopt(dev, card, vd, field_name)
+    phase_viewer(dev, card, vd, field_name)
     del vd, stack
     phase_config5(dev, card)
     phase_iso_sharded(dev, card)

@@ -2,10 +2,9 @@
 
 Counterpart of ``correrender_tpu/app/cli.py`` (the reference's app shell
 and flags, src/Main.cpp:100-138: --perf, --sampling, --replicability) as
-subcommands, every one of the JAX package's but ``view`` (the browser
-viewer, not ported yet). Each command that loads data, builds a scene or
-computes on tensors takes ``--device`` (default ``cuda``; ``cpu`` runs
-the kernels' plain versions):
+subcommands, every one of the JAX package's. Each command that loads
+data, builds a scene or computes on tensors takes ``--device`` (default
+``cuda``; ``cpu`` runs the kernels' plain versions):
 
   python -m correrender_tpu_torch.app.cli render --dataset f.nc \\
       --measure pearson --ref 10,20,5 --output out.png
@@ -17,6 +16,8 @@ the kernels' plain versions):
   python -m correrender_tpu_torch.app.cli sampling --output sampling.csv
   python -m correrender_tpu_torch.app.cli perf --dataset f.nc --output p.csv
   python -m correrender_tpu_torch.app.cli info --dataset f.nc --device cpu
+  python -m correrender_tpu_torch.app.cli view --dataset f.nc \\
+      --measure pearson --ref 10,20,5 --port 8777
 """
 
 from __future__ import annotations
@@ -111,6 +112,26 @@ def cmd_render(args):
                             show_legend=args.legend)
     _save_png(img, args.output)
     print(f"wrote {args.output}")
+
+
+def cmd_view(args):
+    from correrender_tpu_torch.app.viewer import serve
+
+    if getattr(args, "state", None):
+        from correrender_tpu_torch.app.state import Scene
+
+        scene = Scene.load_state(args.state, device=args.device,
+                                 catalog=args.catalog)
+        if not scene.renderers:
+            scene.add_renderer(
+                "dvr", field=scene.volume_data.field_names[-1])
+    elif not args.dataset:
+        raise SystemExit("view needs --dataset or --state")
+    else:
+        scene = _build_render_scene(args)
+    w, h = (int(v) for v in args.size.split("x"))
+    serve(scene, host=args.host, port=args.port, image_size=(w, h),
+          fast_dvr=not args.exact_dvr)
 
 
 def cmd_export(args):
@@ -638,6 +659,20 @@ def build_parser():
                     help="rasterize the TF color legend into the view")
     sp.add_argument("--output", required=True)
     sp.set_defaults(fn=cmd_render)
+
+    sp = sub.add_parser(
+        "view",
+        help="interactive browser viewer (the reference GUI analogue: "
+             "drag = orbit, wheel = zoom, shift+click = pick reference "
+             "point, property panel for measure/field/TF/time/member)")
+    add_scene_args(sp, dataset_required=False)
+    sp.add_argument("--state", default=None,
+                    help="open a saved scene state instead of building "
+                         "one (native or reference-app format; "
+                         "--catalog resolves dataset-by-name entries)")
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8777)
+    sp.set_defaults(fn=cmd_view)
 
     sp = sub.add_parser(
         "mesh",

@@ -324,6 +324,28 @@ def test_port_never_imports_jax():
                                       config1_transfer_function(),
                                       image_size=(32, 24))
         assert img.shape == (24, 32, 4) and bool(torch.isfinite(img).all())
+        # One /frame through the viewer's server.
+        import threading, urllib.request
+        from correrender_tpu_torch.app.state import Scene
+        from correrender_tpu_torch.app.viewer import make_server
+        from correrender_tpu_torch.calculators.correlation import (
+            CorrelationCalculator)
+        from correrender_tpu_torch.core.fields import (
+            GridMetadata, VolumeData)
+        vd = VolumeData(GridMetadata(xs=8, ys=8, zs=4, es=12), device="cpu")
+        vd.add_field("q", lambda t, e: stack[..., e])
+        scene = Scene(vd, [config1_camera()])
+        scene.add_renderer("dvr", field=scene.add_calculator(
+            CorrelationCalculator("q", reference_point=(2, 2, 2))))
+        server, app = make_server(scene, port=0, image_size=(32, 24))
+        thread = threading.Thread(target=server.serve_forever)
+        thread.start()
+        url = "http://%s:%d/frame" % server.server_address
+        with urllib.request.urlopen(url, timeout=60) as r:
+            assert r.status == 200 and r.read()[:4] == b"\\x89PNG"
+        server.shutdown()
+        server.server_close()
+        thread.join()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "correrender_tpu"))
         print("LOADED", bad)
