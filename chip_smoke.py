@@ -35,8 +35,10 @@ Phases, each asserting; any failure exits non-zero:
    4096 (its lane, register and shared-memory boundaries) with rows of
    signed zeros and a third reference (signed zeros and a NaN member);
    KSG with both estimators, per-point counts equal, B10 at
-   band widths 192 and 16 against B9, on mass ties without noise, and on
-   independent series at n = 1000 (its longest scans).
+   band widths 192 and 16 against B9, on mass ties without noise, a
+   mass-tied reference at n = 1000, five voxels at the shared-memory
+   limit n = 12288, and independent series at n = 1000 (B10's longest
+   scans).
 4. BASELINE config 1 at its own size (128×128×32, 100 members,
    1280×720): ``render_correlation_fast`` through the kernels against the
    same function on the CPU (one thread), where it runs the plain
@@ -390,8 +392,9 @@ MIN_SSIM_FRAME = 0.995
 ATOL_SPEARMAN = 1e-7
 ATOL_KENDALL = 0.0
 # B9 against its plain version, and B10 against B9 and its plain version:
-# equal per-point counts, so the fields differ only by the order of the
-# f32 psi sums (tests/test_pallas.py:68 holds B9 to JAX at 1e-5).
+# equal per-point counts, so the fields differ only by the psi sums'
+# rounding (the kernels sum in double, the plain version in f32;
+# tests/test_pallas.py:68 holds B9 to JAX at 1e-5).
 ATOL_KSG = 1e-5
 # A field on the card against the same correlate_field on the CPU, where
 # every wrapper runs its plain version (config 2 and 3 sizes): the
@@ -483,6 +486,10 @@ CONFIG2_GRID, CONFIG2_MEMBERS = (96, 64, 32), 250
 CONFIG3_GRID, CONFIG3_MEMBERS = (48, 48, 24), 500
 CONFIG_CHECK_STEP = 16  # configs 2-3: every 16th voxel against the CPU
 MI_GRID, MI_MEMBERS = 48, 1000  # the JAX bench's KSG size (bench.py:46-47)
+# B9 and B10 at their shared-memory limit (_build.MAX_MEMBERS), on
+# measure_inputs' correlated, quantized, repeated-member, NaN and
+# constant voxels.
+KSG_LIMIT_N, KSG_LIMIT_ROWS = 12288, [0, 16, 40, 48, 49]
 MI_SUBSET = 4096  # voxels for the plain versions at 48^3 x 1000
 GRID_CHECK_STEP = 997  # the 250^3 x 100 fields: every 997th voxel
 ISO_VALUE, ISO_VOXEL_STEP = 0.5, 0.25  # the iso frame: q = 4
@@ -510,12 +517,17 @@ def measure_bounds(vs: int, n: int, k: int = 3) -> dict:
     # nearest Chebyshev distances (4 operations each) and the two
     # marginal counts by binary search (2·log2(n) operations each).
     ksg = bound(io_bytes, sort_ops + vs * n * (4.0 * (k + 1) + 4.0 * log2n))
-    # B9 (ksg_kernel.py:60-107, estimator 1) compares every ordered pair
-    # of a voxel's members: y_j − y_i, |Δx|, |Δy| and their max (4
-    # operations), at least one comparison to select the k-th distance,
-    # and each marginal count's value-boundary test (two comparisons, an
-    # and, an add: 8); the x differences are shared by every voxel.
-    full_rows = bound(io_bytes, 13.0 * vs * n * n)
+    # B9 (csrc/ksg.cu, estimator 1) scans every ordered pair of a
+    # voxel's members for the k-th distance: y_j − y_i, |Δx|, |Δy|, their
+    # max and one comparison against the current k-th (5 operations; the
+    # x differences are shared by every voxel, so |Δx| counts one); then
+    # it sorts y and counts each point's marginals by four binary
+    # searches (4·log2(n) steps). At 4096 voxels of 1000 members that is
+    # 2.05e10 + 8.2e7 + 1.6e8 operations, 0.31 ms. None is an FMA, which
+    # F32_OPS_PER_S counts as two: the card issues at most half of that
+    # rate here, so B9 cannot pass about half of this bound.
+    full_rows = bound(io_bytes, sort_ops + 5.0 * vs * n * n
+                      + 4.0 * vs * n * log2n)
     return {
         # Sort, the tie runs' ranks and the three rank moments (about 8
         # operations a member).
@@ -1516,6 +1528,17 @@ def phase_kernels_measures(dev, errs: dict) -> None:
     ksg_cases(torch.clamp(torch.round(y), -1.0, 1.0),
               torch.clamp(torch.round(refs["continuous"]), -1.0, 1.0),
               "n=250 mass ties, no noise", use_noise=False)
+    # A mass-tied reference (three levels, no noise) at n = 1000 against
+    # measure_inputs' continuous, quantized, NaN and constant voxels.
+    y, refs = measure_inputs(1000, gen, dev)
+    ksg_cases(y, torch.clamp(torch.round(refs["continuous"]), -1.0, 1.0),
+              "n=1000 mass-tied ref, no noise", use_noise=False)
+    # The shared-memory limit: a few voxels of _build.MAX_MEMBERS
+    # members (one warp a block; B9's rows tile it exactly).
+    y, refs = measure_inputs(KSG_LIMIT_N, gen, dev)
+    for label, x in refs.items():
+        ksg_cases(y[KSG_LIMIT_ROWS].contiguous(), x,
+                  f"n={KSG_LIMIT_N} {label} ref")
     # Independent series at n = 1000: B10's longest scans.
     x = torch.randn(1000, generator=gen, device=dev)
     ksg_cases(torch.randn((96, 1000), generator=gen, device=dev), x,

@@ -100,8 +100,9 @@ _SIGNATURES = {
     "correrender_spearman_probe": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
     # series, perm, gstart, counts, v, n
     "correrender_kendall": [_P, _P, _P, _P, _L, _I, _I, _P],
-    # series, x_noised, y_noise, psi_sum, counts, v, n, k, estimator
-    "correrender_mi_ksg": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # series, perm, xs_sorted, y_noise, psi_sum, counts, v, n, k,
+    # estimator
+    "correrender_mi_ksg": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     # series, perm, xs_sorted, y_noise, psi_sum, counts, repaired, v, n,
     # w_band, k, estimator
     "correrender_mi_ksg_banded": [
@@ -223,9 +224,18 @@ def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 
 #: The rank and MI kernels hold the reference series and each warp's
-#: member series in shared memory (ksg_common.cuh); B10 also a sorted
-#: copy, B8 a second buffer, which fit one warp's block up to n = 12288.
+#: member series in shared memory (ksg_common.cuh); B9 and B10 also a
+#: ψ table and a sorted copy, B8 a second buffer, which fit one warp's
+#: block up to n = 12288.
 MAX_MEMBERS = 12288
+
+
+def check_members(kernel: str, n: int, device) -> None:
+    """The kernels' shared-memory limit on a CUDA device (``device`` a
+    string or a ``torch.device``); the plain versions take any n."""
+    if torch.device(device).type == "cuda" and n > MAX_MEMBERS:
+        raise ValueError(f"{kernel}: n={n} members exceed the kernel's "
+                         f"shared-memory limit of {MAX_MEMBERS}")
 
 
 def member_series(kernel: str, stack: torch.Tensor, ref: torch.Tensor):
@@ -244,9 +254,7 @@ def member_series(kernel: str, stack: torch.Tensor, ref: torch.Tensor):
     if stack.device.type == "cuda":
         require_cuda_tensor(stack, "stack", torch.float32, stack.device)
         require_cuda_tensor(ref, "ref", torch.float32, stack.device)
-        if n > MAX_MEMBERS:
-            raise ValueError(f"{kernel}: n={n} members exceed the kernel's "
-                             f"shared-memory limit of {MAX_MEMBERS}")
+        check_members(kernel, n, stack.device)
     return stack.reshape(-1, n), stack.shape[:-1]
 
 

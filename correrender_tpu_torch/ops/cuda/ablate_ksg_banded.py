@@ -59,15 +59,19 @@ VARIANTS = {
 EXACT = ("shipped", "walk width 1", "walk width 4", "walk width 16")
 
 
-def build_variants() -> dict:
-    """Build every variant; returns {name: loaded ctypes library}."""
+def build_variants(source: str = "ksg_banded.cu", variants=None,
+                   entry: str = "correrender_mi_ksg_banded",
+                   subdir: str = "ablate") -> dict:
+    """Build every variant of ``csrc/<source>`` (default: this script's
+    own) under ``build/<subdir>/``; returns {name: loaded ctypes
+    library} with ``entry`` bound."""
     import ctypes
 
-    src = (_build._CSRC / "ksg_banded.cu").read_text()
+    src = (_build._CSRC / source).read_text()
     header = (_build._CSRC / "ksg_common.cuh").read_text()
-    root = _build._BUILD_DIR.parent / "ablate"
+    root = _build._BUILD_DIR.parent / subdir
     procs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
+    for i, (name, subs) in enumerate((variants or VARIANTS).items()):
         text = src
         for old, new in subs:
             if text.count(old) != 1:
@@ -77,12 +81,12 @@ def build_variants() -> dict:
         d = root / f"v{i}"
         d.mkdir(parents=True, exist_ok=True)
         (d / "ksg_common.cuh").write_text(header)
-        (d / "ksg_banded.cu").write_text(text)
+        (d / source).write_text(text)
         procs[name] = (d / "lib.so", subprocess.Popen(
             [_build._nvcc(), *_build._ARCH_FLAGS, "-std=c++17", "-O3",
              "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
              "-o", str(d / "lib.so"),
-             str(d / "ksg_banded.cu")],
+             str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (path, proc) in procs.items():
@@ -90,8 +94,8 @@ def build_variants() -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
         lib = ctypes.CDLL(str(path))
-        fn = lib.correrender_mi_ksg_banded
-        fn.argtypes = _build._SIGNATURES["correrender_mi_ksg_banded"]
+        fn = getattr(lib, entry)
+        fn.argtypes = _build._SIGNATURES[entry]
         fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
@@ -130,8 +134,7 @@ def shapes(dev):
 def main() -> None:
     from correrender_tpu_torch.ops.cuda.ksg_banded import (
         band_width, banded_psi_sums)
-    from correrender_tpu_torch.ops.cuda.ksg_kernel import noised_reference
-    from correrender_tpu_torch.ops.ranks import stable_order
+    from correrender_tpu_torch.ops.cuda.ksg_kernel import sorted_reference
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the ablation runs on the card")
@@ -145,8 +148,7 @@ def main() -> None:
     for label, series, ref in shapes(dev):
         v, n = series.shape
         w = band_width(n, 3)
-        x, y_noise = noised_reference(ref, True, None)
-        perm, xs = stable_order(x)
+        perm, xs, y_noise = sorted_reference(ref, True, None)
 
         def psi_sums(lib):
             psi = torch.empty(v, dtype=torch.float32, device=dev)

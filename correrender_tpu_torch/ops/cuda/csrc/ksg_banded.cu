@@ -45,10 +45,11 @@
 // chunk of up to 8 values a lane in registers and shuffles, the wider
 // stages in shared memory); the four searches of a point run
 // interleaved, without branches. Both count exactly the j with
-// v_j ∈ [v_i − r, v_i + r) that B9 counts by scanning, for any radius,
-// since comparisons against a sorted array are monotone. The ψ of a
+// v_j ∈ [v_i − r, v_i + r) that a scan of the row counts, for any
+// radius, since comparisons against a sorted array are monotone. The ψ of a
 // count comes from a table of ψ(1..n) that each block fills once with
-// the same digamma_series B9 evaluates per point.
+// the same digamma_series. The searches, the sort, the ψ table and
+// estimator 2's walk are ksg_common.cuh's, shared with B9.
 //
 // `repaired` counts, per voxel, the points whose answer needs a point
 // outside the rank band [i − W/2, i + W/2): one with |Δx| < r, or for
@@ -66,137 +67,6 @@
 namespace {
 
 using namespace correrender;
-
-// The marginal counts #{j : v_j ∈ [v − r, v + r)} of a point in xs (n
-// values, read as +inf past them) and in ysorted (len values, +inf past
-// n; len a power of two), by four interleaved branch-free binary
-// searches: each finds #{j : a[j] < bound}, as a lower bound does.
-__device__ __forceinline__ void marginal_counts(const float* xs,
-                                                const float* ysorted, int n,
-                                                int len, float xi, float yi,
-                                                float rx, float ry, int* cx,
-                                                int* cy) {
-  const float bound[4] = {__fsub_rn(xi, rx), __fadd_rn(xi, rx),
-                          __fsub_rn(yi, ry), __fadd_rn(yi, ry)};
-  int pos[4] = {0, 0, 0, 0};
-  for (int half = len >> 1; half > 0; half >>= 1) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = pos[b] + half - 1;
-      const float a = b < 2 ? (j < n ? xs[j] : INFINITY) : ysorted[j];
-      pos[b] += a < bound[b] ? half : 0;
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int j = pos[b];
-    pos[b] += (b < 2 ? (j < n ? xs[j] : INFINITY) : ysorted[j]) < bound[b];
-  }
-  *cx = max(pos[1] - pos[0], 0);
-  *cy = max(pos[3] - pos[2], 0);
-}
-
-// The compare-exchange stages (size, stride) of a bitonic sort, stride
-// from `top` down to 1, on the E·LANES values of a chunk held E to a
-// lane (lane sub holds global indices first + E·sub, ..., + E − 1): a
-// partner fewer than E places away is in the lane's own registers, one
-// E or more away in lane sub ^ (stride / E), a shuffle away. Equal
-// values compare alike in either order (−0 and +0 included), so min and
-// max keep the counts.
-template <int LANES, int E>
-__device__ __forceinline__ void register_stages(float (&r)[E], int first,
-                                                int sub, int size, int top) {
-#pragma unroll
-  for (int stride = E * LANES / 2; stride > 0; stride >>= 1) {
-    if (stride > top) continue;
-    if (stride < E) {
-#pragma unroll
-      for (int t = 0; t < E; ++t) {
-        if ((t & stride) == 0) {
-          const int u = t | stride;
-          const bool ascending = ((first + E * sub + t) & size) == 0;
-          const float lo = fminf(r[t], r[u]), hi = fmaxf(r[t], r[u]);
-          r[t] = ascending ? lo : hi;
-          r[u] = ascending ? hi : lo;
-        }
-      }
-    } else {
-      const int apart = stride / E;
-      const bool lower = (sub & apart) == 0;
-#pragma unroll
-      for (int t = 0; t < E; ++t) {
-        const float other = __shfl_xor_sync(kFullMask, r[t], apart);
-        const bool ascending = ((first + E * sub + t) & size) == 0;
-        r[t] = lower == ascending ? fminf(r[t], other) : fmaxf(r[t], other);
-      }
-    }
-  }
-}
-
-// Ascending bitonic sort of a[0, len) (len a power of two, a multiple of
-// E·LANES) by the LANES lanes of one voxel; every lane of the warp takes
-// part in every step. Stages whose partners lie within a chunk of E·LANES
-// values run in registers, the wider ones in shared memory.
-template <int LANES, int E>
-__device__ void chunked_bitonic_sort(float* a, int len, int sub) {
-  constexpr int kChunk = E * LANES;
-  float r[E];
-  for (int first = 0; first < len; first += kChunk) {
-#pragma unroll
-    for (int t = 0; t < E; ++t) r[t] = a[first + E * sub + t];
-#pragma unroll
-    for (int size = 2; size <= kChunk; size <<= 1) {
-      register_stages<LANES, E>(r, first, sub, size, size / 2);
-    }
-#pragma unroll
-    for (int t = 0; t < E; ++t) a[first + E * sub + t] = r[t];
-  }
-  __syncwarp();
-  for (int size = 2 * kChunk; size <= len; size <<= 1) {
-    for (int stride = size / 2; stride >= kChunk; stride >>= 1) {
-      for (int t = sub; t < len; t += LANES) {
-        const int partner = t ^ stride;
-        if (partner > t) {
-          const float lo = a[t], hi = a[partner];
-          if ((lo > hi) == ((t & size) == 0)) {
-            a[t] = hi;
-            a[partner] = lo;
-          }
-        }
-      }
-      __syncwarp();
-    }
-    for (int first = 0; first < len; first += kChunk) {
-#pragma unroll
-      for (int t = 0; t < E; ++t) r[t] = a[first + E * sub + t];
-      register_stages<LANES, E>(r, first, sub, size, kChunk / 2);
-#pragma unroll
-      for (int t = 0; t < E; ++t) a[first + E * sub + t] = r[t];
-    }
-    __syncwarp();
-  }
-}
-
-// Ascending sort of a voxel's y (len a power of two ≥ LANES): up to 8
-// values a lane in registers, in chunks of 8·LANES beyond.
-template <int LANES>
-__device__ __forceinline__ void sort_y(float* a, int len, int sub) {
-  if (len == LANES) {
-    chunked_bitonic_sort<LANES, 1>(a, len, sub);
-  } else if (len == 2 * LANES) {
-    chunked_bitonic_sort<LANES, 2>(a, len, sub);
-  } else if (len == 4 * LANES) {
-    chunked_bitonic_sort<LANES, 4>(a, len, sub);
-  } else {
-    chunked_bitonic_sort<LANES, 8>(a, len, sub);
-  }
-}
-
-// |xs[j] − xi|, or +inf past either end.
-__device__ __forceinline__ float x_gap(const float* xs, int n, int j,
-                                       float xi) {
-  return j >= 0 && j < n ? fabsf(__fsub_rn(xs[j], xi)) : INFINITY;
-}
 
 // The points a side of the walk reads per round.
 constexpr int kWalkWidth = 8;
@@ -246,41 +116,6 @@ __device__ __forceinline__ float walk_kth(const float* xs, const float* ys,
   return best.top[0];
 }
 
-// Estimator 2's extents (max |dx|, |dy| over {j : dch_j ≤ r}): the
-// visited range (lo, hi) again with the final r, then on along each
-// side while |Δx| ≤ r. Neither extent can pass r, so a side stops once
-// both have reached it.
-__device__ __forceinline__ void walk_extents(const float* xs,
-                                             const float* ys, int n,
-                                             float xi, float yi, float r,
-                                             int lo, int hi, float* ex,
-                                             float* ey) {
-  float mx = -1.0f, my = -1.0f;
-  for (int j = lo + 1; j < hi; ++j) {
-    const float dx = fabsf(__fsub_rn(xs[j], xi));
-    const float dy = fabsf(__fsub_rn(ys[j], yi));
-    if (fmaxf(dx, dy) <= r) {
-      mx = fmaxf(mx, dx);
-      my = fmaxf(my, dy);
-    }
-  }
-  for (int step = -1; step <= 1; step += 2) {
-    int j = step < 0 ? lo : hi;
-    while (!(mx == r && my == r)) {
-      const float dx = x_gap(xs, n, j, xi);
-      if (!(dx <= r)) break;
-      const float dy = fabsf(__fsub_rn(ys[j], yi));
-      if (fmaxf(dx, dy) <= r) {
-        mx = fmaxf(mx, dx);
-        my = fmaxf(my, dy);
-      }
-      j += step;
-    }
-  }
-  *ex = mx;
-  *ey = my;
-}
-
 // Whether point i's answer needs a point outside its rank band of
 // half width `half_band` (see `repaired` above).
 __device__ __forceinline__ bool out_of_band(const float* xs, int n, int i,
@@ -289,14 +124,6 @@ __device__ __forceinline__ bool out_of_band(const float* xs, int n, int i,
   const float gap = fminf(x_gap(xs, n, i - half_band - 1, xi),
                           x_gap(xs, n, i + half_band, xi));
   return estimator == 2 ? gap <= r : gap < r;
-}
-
-// ψ terms of one point from its marginal counts: psi_of_counts with
-// ψ(m), m = 1..n, read from the block's table of digamma_series values.
-__device__ __forceinline__ float psi_terms(const float* psi, int estimator,
-                                           int cx, int cy) {
-  const int off = estimator == 1 ? 0 : 1;
-  return psi[max(cx - off, 1)] + psi[max(cy - off, 1)];
 }
 
 template <int KMAX, int LANES>
@@ -320,9 +147,7 @@ __global__ void ksg_banded_kernel(const float* __restrict__ series,
   float* ys = psi + n + 1 + (warp * kGroups + group) * (n + npow2);
   float* ysorted = ys + n;
   for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = xs_sorted[j];
-  for (int m = threadIdx.x; m <= n; m += blockDim.x) {
-    psi[m] = digamma_series(static_cast<float>(max(m, 1)));
-  }
+  fill_psi_table(psi, n);
   const long long first =
       (static_cast<long long>(blockIdx.x) * warps + warp) * kGroups;
   const long long voxel = first + group;
@@ -344,7 +169,7 @@ __global__ void ksg_banded_kernel(const float* __restrict__ series,
   const unsigned group_mask = (kFullMask >> (32 - LANES)) << (group * LANES);
   const bool nan = (__ballot_sync(kFullMask, nan_seen) & group_mask) != 0;
   sort_y<LANES>(ysorted, npow2, sub);
-  float acc = 0.0f;
+  double acc = 0.0;  // the ψ sum in double, as B9's (ksg.cu)
   int left = 0;
   if (live && !nan) {
     for (int i = sub; i < n; i += LANES) {
@@ -373,7 +198,7 @@ __global__ void ksg_banded_kernel(const float* __restrict__ series,
   acc = group_sum<LANES>(acc);
   left = group_sum<LANES>(left);
   if (live && sub == 0) {
-    psi_sum[voxel] = nan ? NAN : acc;
+    psi_sum[voxel] = nan ? NAN : static_cast<float>(acc);
     if (repaired) repaired[voxel] = left;
   }
 }

@@ -27,9 +27,8 @@ from correrender_tpu_torch.ops.cuda.ksg_kernel import (
     check_ksg_args,
     mi_from_psi,
     mi_ksg_plain,
-    noised_reference,
+    sorted_reference,
 )
-from correrender_tpu_torch.ops.ranks import stable_order
 
 #: The default rank-band width (the JAX package's ``w_band``).
 W_BAND = 192
@@ -105,8 +104,7 @@ def banded_psi_sums(series: torch.Tensor, ref: torch.Tensor, k: int,
     ``(V, n, 2)`` counts and ``(V,)`` points that need a point outside
     the band (else None, None)."""
     v, n = series.shape
-    x, y_noise = noised_reference(ref, use_noise, noise)
-    perm, xs = stable_order(x)
+    perm, xs, y_noise = sorted_reference(ref, use_noise, noise)
     psi = torch.empty(v, dtype=torch.float32, device=series.device)
     counts = repaired = None
     if with_counts:

@@ -2,11 +2,15 @@
 
 Counterpart of ``correrender_tpu/ops/pallas/ksg_kernel.py``. The kernel
 finds each point's (k+1)-th smallest Chebyshev distance (self and ties
-included), counts the marginals over ``[v − r, v + r)``, and sums the ψ
-terms per voxel, as :func:`ops.mi_ksg.ksg_psi_sums` does in torch (the
-plain version); the wrapper adds ψ(k) + ψ(n) (− 1/k) and clamps at 0.
-The tie-break noise is added inside the kernel from the ``(n,)`` noise
-vectors, each sum rounded once, as the plain version adds it.
+included) over its whole row, counts the marginals over ``[v − r,
+v + r)``, and sums the ψ terms per voxel, as
+:func:`ops.mi_ksg.ksg_psi_sums` does in torch (the plain version); the
+wrapper adds ψ(k) + ψ(n) (− 1/k) and clamps at 0. The tie-break noise
+is added inside the kernel from the ``(n,)`` noise vectors, each sum
+rounded once, as the plain version adds it. The wrapper sorts the noised
+reference once (:func:`ops.ranks.stable_order`); the kernel scans the
+rows in that order and counts the marginals by binary search in the
+sorted reference and in a sorted copy of each voxel's y.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 from correrender_tpu_torch.ops.cuda import _build
 from correrender_tpu_torch.ops.mi_ksg import ksg_mi, ksg_psi_sums
 from correrender_tpu_torch.ops.noise import scaled_noise
+from correrender_tpu_torch.ops.ranks import stable_order
 
 #: The longest neighbour list a kernel thread keeps (ksg_common.cuh).
 MAX_NEIGHBOURS = 16
@@ -30,6 +35,7 @@ def check_ksg_args(n: int, k: int, estimator: int, device) -> None:
         raise ValueError(f"k={k}: the kernels keep at most "
                          f"{MAX_NEIGHBOURS} neighbours (k ≤ "
                          f"{MAX_NEIGHBOURS - 1})")
+    _build.check_members("mi_ksg", n, device)
 
 
 def noised_reference(ref: torch.Tensor, use_noise: bool, noise=None):
@@ -39,6 +45,15 @@ def noised_reference(ref: torch.Tensor, use_noise: bool, noise=None):
         return ref, None
     sx, sy = scaled_noise(ref.shape[0], ref.device, noise)
     return ref + sx, sy
+
+
+def sorted_reference(ref: torch.Tensor, use_noise: bool, noise=None):
+    """``(perm, xs, y_noise)``: the stable ascending order of the noised
+    reference, the sorted values, and the amounts the kernels add to the
+    voxel series (see :func:`noised_reference`)."""
+    x, y_noise = noised_reference(ref, use_noise, noise)
+    perm, xs = stable_order(x)
+    return perm, xs, y_noise
 
 
 def mi_from_psi(psi_sum: torch.Tensor, ref: torch.Tensor, k: int,
@@ -99,7 +114,7 @@ def mi_ksg_cuda(stack: torch.Tensor, ref: torch.Tensor, k: int = 3,
         out = mi_ksg_plain(series, ref, k, estimator, use_noise, noise,
                            with_counts)
     else:
-        x, y_noise = noised_reference(ref, use_noise, noise)
+        perm, xs, y_noise = sorted_reference(ref, use_noise, noise)
         psi = torch.empty(v, dtype=torch.float32, device=stack.device)
         counts = (torch.empty((v, n, 2), dtype=torch.int32,
                               device=stack.device) if with_counts else None)
@@ -107,7 +122,7 @@ def mi_ksg_cuda(stack: torch.Tensor, ref: torch.Tensor, k: int = 3,
             lib = _build.library()
             _build.LAUNCHES["mi_ksg"] += 1
             err = lib.correrender_mi_ksg(
-                series.data_ptr(), x.data_ptr(),
+                series.data_ptr(), perm.data_ptr(), xs.data_ptr(),
                 y_noise.data_ptr() if y_noise is not None else None,
                 psi.data_ptr(), counts.data_ptr() if with_counts else None,
                 v, n, k, estimator, stack.device.index,
