@@ -357,6 +357,26 @@ Phases, each asserting; any failure exits non-zero:
    (``fast_dvr`` off: B5 once); ``tf_optimize`` (OLS, R = 64) and the
    frame after it; the peak memory. An HTTP 500 or a launch count off by
    one fails the phase.
+30. The CPU oracles and ``run_all`` (run after phase 12 on its 48³ × 1000
+   stack and 4096-voxel subset). The CPU baseline
+   (``correrender_tpu_torch/cpu_baseline.cpp``, built with ``g++
+   -fopenmp`` at first use) computes on the host, from the same series
+   copied member-major: (a) ``pearson_field_cpu`` (sums in double)
+   against K1 and its plain version (2e-5); (b) ``ksg_field_cpu`` (a k-d
+   tree, independent of the port's estimators) against B9, B10 and their
+   plain versions, k = 3, estimators 1 and 2, without noise and on the
+   noised series the kernels see (the reference from
+   ``noised_reference``, each voxel plus its noise rounded once), 1e-5;
+   estimator 2 on the voxels without a tie at a point's k-th distance
+   (there JAX's and the port's neighbour set takes every tied point, the
+   k-d tree k + 1 of them), the tied voxels printed apart.
+   (c) ``app.baseline_configs.run_all`` on the card into build/run_all
+   (deleted after the phase): five rows in order, none with an error, the
+   file read back equal to the returned rows; each row's times. (d) The
+   host's CPU denominators at the JAX bench's shapes (Pearson at 32³ ×
+   1000 on one and on every thread, KSG at 256 voxels × 1000, the DDR
+   triad over 3 × 128 MiB, the core count), printed beside the host's CPU
+   model, never as the card's.
 
 The second-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -495,6 +515,10 @@ GRID_CHECK_STEP = 997  # the 250^3 x 100 fields: every 997th voxel
 ISO_VALUE, ISO_VOXEL_STEP = 0.5, 0.25  # the iso frame: q = 4
 STREAM_SIDE, STREAM_MEMBERS, STREAM_CHUNK = 250, 1000, 50  # bench.py:43-45
 STREAM_CHECK_SIDE = 64  # pearson_streamed against K1 at 64^3 x 1000
+RUN_ALL_DIR = "build/run_all"
+RUN_ALL_CONFIGS = ["synth_box_pearson_dvr", "rank_correlations",
+                   "mutual_information", "timelag_zarr_flythrough",
+                   "sharded_batch_render_export"]
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -1699,13 +1723,14 @@ def phase_configs23(dev, card: str, errs: dict) -> None:
         del res, stack, ref
 
 
-def phase_members(dev, card: str, errs: dict, stats: dict) -> None:
+def phase_members(dev, card: str, errs: dict, stats: dict):
     """48^3 voxels x 1000 members (the JAX bench's KSG size), drawn on the
     card: the Spearman, Kendall and KSG fields through correlate_field
     (B7, B8, B10), each once with counted launches and then its median
     field time; B9 the same way through its own wrapper, which no entry
     point reaches; each kernel against its plain version on a 4096-voxel
-    subset, with both times and the bound."""
+    subset, with both times and the bound. Returns the stack and its
+    reference series (phase 30 reads them)."""
     from correrender_tpu_torch.calculators.correlation import correlate_field
     from correrender_tpu_torch.ops.cuda import _build
     from correrender_tpu_torch.ops.cuda.kendall_kernel import (
@@ -1778,6 +1803,172 @@ def phase_members(dev, card: str, errs: dict, stats: dict) -> None:
     ms = median_ms(lambda: correlate_field(stack, ref, "mi_binned"))
     print(f"[members {card}] mi_binned (torch einsum, no kernel) field "
           f"{ms:.3f} ms (median of 5)")
+    return stack, ref
+
+
+def host_cpu_model() -> str:
+    """The host's CPU model, as ``lscpu`` names it (``/proc/cpuinfo`` has
+    no model name on some architectures)."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        out = ""
+    fields = {k.strip(): v.strip() for k, v in (
+        line.split(":", 1) for line in out.splitlines() if ":" in line)}
+    if not out:
+        return "unknown (no lscpu)"
+    return (f"{fields.get('Vendor ID', '?')}, model name "
+            f"{fields.get('Model name', '?')}, family "
+            f"{fields.get('CPU family', '?')} model {fields.get('Model', '?')}"
+            f", {fields.get('Architecture', '?')}")
+
+
+def kth_distance_ties(x: torch.Tensor, y: torch.Tensor, k: int,
+                      chunk: int = 64) -> torch.Tensor:
+    """``(V,)`` bool: the voxels of ``y`` ``(V, n)`` against ``x``
+    ``(n,)`` where some point has more than k + 1 points (itself
+    included) within its k-th Chebyshev distance, computed as the plain
+    KSG computes it (``ops/mi_ksg.py::ksg_psi_sums``)."""
+    from correrender_tpu_torch.ops.special import select_kth
+
+    dx = (x[:, None] - x[None, :]).abs()
+    out = torch.empty(y.shape[0], dtype=torch.bool, device=y.device)
+    for c in range(0, y.shape[0], chunk):
+        yc = y[c:c + chunk]
+        d = torch.maximum(dx, (yc[:, :, None] - yc[:, None, :]).abs())
+        r = select_kth(d, k)
+        out[c:c + chunk] = ((d <= r[..., None]).sum(-1) > k + 1).any(-1)
+    return out
+
+
+def phase_oracles(dev, card: str, errs: dict, stack: torch.Tensor,
+                  ref: torch.Tensor) -> None:
+    """30. The CPU oracles and run_all (see the module docstring)."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from correrender_tpu_torch import native
+    from correrender_tpu_torch.app.baseline_configs import run_all
+    from correrender_tpu_torch.ops.cuda.ksg_banded import (
+        mi_ksg_banded, mi_ksg_banded_plain)
+    from correrender_tpu_torch.ops.cuda.ksg_kernel import (
+        mi_ksg_cuda, mi_ksg_plain, noised_reference)
+    from correrender_tpu_torch.ops.cuda.pearson_kernel import (
+        pearson_cuda, pearson_plain)
+
+    t_phase = time.perf_counter()
+    host = host_cpu_model()
+    n = stack.shape[-1]
+    sub = stack.reshape(-1, n)[:MI_SUBSET]
+    vs = sub.shape[0]
+
+    def member_major(series):  # (V, n) on the card -> (n, V) on the host
+        return np.ascontiguousarray(series.cpu().numpy().T)
+
+    # (a) K1 against the baseline's double sums on the same series.
+    t0 = time.perf_counter()
+    want = torch.from_numpy(native.pearson_field_cpu(
+        ref.cpu().numpy(), member_major(sub)))
+    cpu_s = time.perf_counter() - t0
+    got = pearson_cuda(sub, ref)
+    err = max_abs(got.cpu(), want)
+    err_plain = max_abs(pearson_plain(sub, ref).cpu(), want)
+    print(f"[oracles {card}] (a) {MI_GRID}^3 x {n}, {vs}-voxel subset: K1 "
+          f"vs pearson_field_cpu {err:.3e}, K1's plain version vs it "
+          f"{err_plain:.3e} (bar {ATOL_PEARSON}; the C++ field {cpu_s:.2f} "
+          f"s on the host, {host})")
+    assert err <= ATOL_PEARSON and err_plain <= ATOL_PEARSON
+    errs["pearson"] = max(errs["pearson"], max_abs(got, pearson_plain(
+        sub, ref)))
+
+    # (b) B9, B10 and their plain versions against the k-d tree KSG,
+    # without noise and then on the series the kernels see with it.
+    # Estimator 2 reads the neighbour set, not only its radius: where a
+    # point's k-th distance is tied, JAX and the port take every tied
+    # point (ops/mi_ksg.py), the k-d tree exactly k + 1 of them, so those
+    # voxels are printed apart and the others held to the bar.
+    k = 3
+    for use_noise in (False, True):
+        x, y_noise = noised_reference(ref, use_noise)
+        y = sub if y_noise is None else sub + y_noise
+        host_x, host_y = x.cpu().numpy(), member_major(y)
+        tied = kth_distance_ties(x, y, k)
+        for estimator in (1, 2):
+            t0 = time.perf_counter()
+            want = torch.from_numpy(native.ksg_field_cpu(
+                host_x, host_y, k=k, estimator=estimator))
+            cpu_s = time.perf_counter() - t0
+            kw = dict(k=k, estimator=estimator, use_noise=use_noise)
+            got = {"B9 mi_ksg_cuda": mi_ksg_cuda(sub, ref, **kw),
+                   "B10 mi_ksg_banded": mi_ksg_banded(sub, ref, **kw),
+                   "B9 plain": mi_ksg_plain(sub, ref, **kw),
+                   "B10 plain": mi_ksg_banded_plain(sub, ref, **kw)}
+            held = (torch.ones_like(tied) if estimator == 1 else ~tied).cpu()
+            res = {name: max_abs(v.cpu()[held], want[held])
+                   for name, v in got.items()}
+            apart = ""
+            if not bool(held.all()):
+                off = {name: max_abs(v.cpu()[~held], want[~held])
+                       for name, v in got.items()}
+                apart = (f"; {int((~held).sum())} voxels with a tie at a "
+                         f"k-th distance, apart: " + ", ".join(
+                             f"{name} {e:.3e}" for name, e in off.items()))
+            print(f"[oracles {card}] (b) KSG k = {k}, estimator "
+                  f"{estimator}, {'noised' if use_noise else 'no noise'}: "
+                  f"vs ksg_field_cpu on {int(held.sum())} voxels " + ", ".join(
+                      f"{name} {e:.3e}" for name, e in res.items())
+                  + f" (bar {ATOL_KSG}; the C++ field {cpu_s:.2f} s on the "
+                  f"host){apart}")
+            assert all(e <= ATOL_KSG for e in res.values()), res
+            for name, kernel, plain in (
+                    ("mi_ksg", "B9 mi_ksg_cuda", "B9 plain"),
+                    ("mi_ksg_banded", "B10 mi_ksg_banded", "B10 plain")):
+                errs[name] = max(errs[name], max_abs(got[kernel],
+                                                     got[plain]))
+    del sub, got, want
+
+    # (c) run_all on the card, into build/ (deleted after the phase).
+    started_group = not dist.is_initialized()
+    path = os.path.join(RUN_ALL_DIR, "BASELINE_RESULTS.json")
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rows = run_all(path, device="cuda")
+        wall = time.perf_counter() - t0
+        with open(path) as f:
+            back = json.load(f)
+        for row in rows:
+            times = {k: v for k, v in row.items()
+                     if k.endswith(("_ms", "_s", "_frame"))}
+            print(f"[oracles {card}] (c) run_all {row['config']}: {times}")
+        assert [r.get("config") for r in rows] == RUN_ALL_CONFIGS, rows
+        assert not [r for r in rows if "error" in r], rows
+        assert back == rows, "the file differs from the returned rows"
+        print(f"[oracles {card}] (c) run_all: five rows, no error, the "
+              f"file equal to the rows; {wall:.1f} s")
+    finally:
+        shutil.rmtree(RUN_ALL_DIR, ignore_errors=True)
+        if started_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+    # (d) The host's CPU denominators at the JAX bench's shapes
+    # (bench.py:304-312, 1006-1021): the host's numbers, not the card's.
+    dll = native.cpu_baseline()
+    den = {
+        "pearson_vox_s_1t": dll.pearson_throughput_cpu_t(32**3, 1000, 1),
+        "pearson_vox_s_all_t": dll.pearson_throughput_cpu_t(32**3, 1000, 0),
+        "ksg_vox_s": dll.ksg_throughput_cpu(256, 1000, 3, 1),
+        "ddr_triad_gbs": dll.ddr_bandwidth_gbs(32 << 20, 3),
+        "cpu_cores": dll.cpu_core_count(),
+    }
+    assert all(math.isfinite(v) and v > 0 for v in den.values()), den
+    print(f"[oracles] (d) host CPU denominators ({host}; beside the card "
+          f"{card}, which computes none of them): {den}")
+    print(f"[oracles {card}] phase 30 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def iso_errors(got, want) -> tuple[float, float]:
@@ -5898,7 +6089,9 @@ def main() -> None:
     phase_iso_fast_config1(dev, card)
     phase_eye_inside(dev, card)
     phase_configs23(dev, card, errs)
-    phase_members(dev, card, errs, stats)
+    mi_stack, mi_ref = phase_members(dev, card, errs, stats)
+    phase_oracles(dev, card, errs, mi_stack, mi_ref)
+    del mi_stack, mi_ref
     phase_iso_render(dev, card)
     phase_streamed(dev, card, errs, stats)
     print(f"[done {card}] chip_smoke.py phases took "

@@ -9,7 +9,8 @@ sizes. Configs 1-3 are timed with CUDA events, so each needs a CUDA
 device and refuses any other. Configs 2 and 3 return their stack,
 reference series and fields beside the times, so a caller can check the
 very fields that were timed. Configs 4 and 5 time on the host clock,
-synchronizing the card first, and run on the CPU too.
+synchronizing the card first, and run on the CPU too. :func:`run_all`
+runs the five in order and writes their rows as JSON.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from correrender_tpu_torch.calculators.correlation import correlate_field
+from correrender_tpu_torch.native import BUILD_ROOT
 from correrender_tpu_torch.render.camera import Camera
 from correrender_tpu_torch.render.pipeline import render_correlation_fast
 from correrender_tpu_torch.render.tf import TransferFunction
@@ -398,3 +400,61 @@ def config5_sharded_batch_render(grid=None, members=64, device="cuda",
         "mesh": mesh,
         "export_path": export,
     }
+
+
+#: Where :func:`run_all` writes by default: under the checkout's build/,
+#: never the root's BASELINE_RESULTS.json (the JAX package's record).
+RESULTS_PATH = BUILD_ROOT / "baseline" / "BASELINE_RESULTS.json"
+
+
+def _jsonable(value) -> bool:
+    try:
+        json.dumps(value)
+    except (TypeError, ValueError):
+        return False
+    return True
+
+
+def run_all(output_path=None, device="cuda"):
+    """Run BASELINE configs 1-5 in order on ``device``, as the JAX
+    package's ``run_all`` does: a config that raises gives the row
+    ``{"config": <function name>, "error": "<type>: <message>"}`` and the
+    loop goes on; each row gets its ``wall_s`` (host clock, unrounded)
+    and is printed as one JSON line; the list is written to
+    ``output_path`` (default :data:`RESULTS_PATH`) and returned.
+
+    The configs return tensors, scenes and frames beside their numbers;
+    a row keeps only the values JSON can hold. Configs 4 and 5 write
+    their files (the Zarr store and PNG frames, the NetCDF export) into
+    ``config4/`` and ``config5/`` beside ``output_path``. Config 5 reuses
+    a running process group (a one-rank group is started if none is)."""
+    output_path = os.path.abspath(
+        RESULTS_PATH if output_path is None else output_path)
+    out_dir = os.path.dirname(output_path)
+    results = []
+    for fn, kwargs in (
+        (config1_synth_box_pearson_dvr, {}),
+        (config2_rank_correlations, {}),
+        (config3_mutual_information, {}),
+        (config4_timelag_zarr_flythrough,
+         {"tmp_dir": os.path.join(out_dir, "config4")}),
+        (config5_sharded_batch_render,
+         {"tmp_dir": os.path.join(out_dir, "config5")}),
+    ):
+        for path in kwargs.values():
+            os.makedirs(path, exist_ok=True)
+        t0 = time.perf_counter()
+        try:
+            out = fn(device=device, **kwargs)
+            row = {k: v for k, v in out.items() if _jsonable(v)}
+            del out
+        except Exception as e:  # record, keep going
+            row = {"config": fn.__name__,
+                   "error": f"{type(e).__name__}: {e}"}
+        row["wall_s"] = time.perf_counter() - t0
+        results.append(row)
+        print(json.dumps(row))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(output_path, "w") as f:
+        json.dump(results, f, indent=2)
+    return results

@@ -2,12 +2,12 @@
 
 Counterpart of ``correrender_tpu/core/cache.py`` (the reference's
 src/Volume/Cache/FieldCache.hpp): an LRU keyed by (name, time, member)
-with a byte budget, and a min/max side cache (FieldMinMaxCache). Entries
-are tensors, counted by their bytes (``numel × element_size``). Dropping
-a handle is always safe: the caching allocator frees a tensor's memory
-once no reference remains, so the reference's eviction wait-list has no
-counterpart. The JAX cache's auxiliary reservations have no caller in
-either package and are not ported.
+with a byte budget, auxiliary-memory reservations that let a calculator
+claim scratch budget, and a min/max side cache (FieldMinMaxCache).
+Entries are tensors, counted by their bytes (``numel × element_size``).
+Dropping a handle is always safe: the caching allocator frees a tensor's
+memory once no reference remains, so the reference's eviction wait-list
+has no counterpart.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ class LRUFieldCache:
         self._entries: OrderedDict[Hashable, torch.Tensor] = OrderedDict()
         self._sizes: dict[Hashable, int] = {}
         self._min_max: dict[Hashable, tuple] = {}
+        self._aux_reserved = 0
         self.used_bytes = 0
         # Lookups that found no slab, and that found one (the perf
         # sweep's cache_misses column).
@@ -74,14 +75,23 @@ class LRUFieldCache:
     def ensure_free(self, size: int):
         """Evict LRU entries until ``size`` bytes fit in the budget.
 
+        The budget is ``max_bytes`` less the auxiliary reservations.
         Like the reference with ``failOnCacheExhaustion=false``, a slab
         larger than the whole budget is still stored. The min/max side
         cache survives eviction (two floats a slab; only
         :meth:`invalidate_field`, a data change, clears it).
         """
-        while self.used_bytes + size > self.max_bytes and self._entries:
+        budget = self.max_bytes - self._aux_reserved
+        while self.used_bytes + size > budget and self._entries:
             old_key, _ = self._entries.popitem(last=False)
             self.used_bytes -= self._sizes.pop(old_key)
+
+    def reserve_auxiliary(self, size: int) -> "AuxiliaryMemoryToken":
+        """Evict until ``size`` bytes fit, then hold them back from the
+        budget until the token is released (FieldCache.hpp:124-138)."""
+        self.ensure_free(size)
+        self._aux_reserved += size
+        return AuxiliaryMemoryToken(self, size)
 
     def invalidate_field(self, name: str):
         for k in [k for k in self._entries if k[0] == name]:
@@ -89,6 +99,13 @@ class LRUFieldCache:
             self.used_bytes -= self._sizes.pop(k)
         for k in [k for k in self._min_max if k[0] == name]:
             del self._min_max[k]
+
+    def clear(self):
+        """Drop every slab and min/max entry (reservations stay)."""
+        self._entries.clear()
+        self._sizes.clear()
+        self._min_max.clear()
+        self.used_bytes = 0
 
     def get_min_max(self, key):
         return self._min_max.get(key)
@@ -101,3 +118,24 @@ class LRUFieldCache:
 
     def __contains__(self, key):
         return key in self._entries
+
+
+class AuxiliaryMemoryToken:
+    """A reservation of :meth:`LRUFieldCache.reserve_auxiliary`, held
+    until :meth:`release` (once; later calls do nothing) or the end of a
+    ``with`` block."""
+
+    def __init__(self, cache: LRUFieldCache, size: int):
+        self._cache = cache
+        self._size = size
+
+    def release(self):
+        if self._cache is not None:
+            self._cache._aux_reserved -= self._size
+            self._cache = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.release()

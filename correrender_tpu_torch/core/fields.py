@@ -52,6 +52,10 @@ class GridMetadata:
     def shape_zyx(self):
         return (self.zs, self.ys, self.xs)
 
+    @property
+    def num_voxels(self):
+        return self.xs * self.ys * self.zs
+
     def world_box(self):
         """Render-space AABB ``[(0,0,0), ((xs-1)dx, h(ys-1)dy, (zs-1)dz)]``
         (h = render_height_scale)."""
@@ -160,6 +164,9 @@ class VolumeData:
     @property
     def calculators(self):
         return dict(self._calculators)
+
+    def field_exists(self, name: str) -> bool:
+        return name in self._providers
 
     # -- access -----------------------------------------------------------
 

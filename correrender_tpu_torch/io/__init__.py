@@ -8,7 +8,7 @@ GrADS .ctl, VTK (.vti, .vts, legacy .vtk), AmiraMesh, NIfTI (.nii,
 .nii.gz), HDF5 (``h5py``, imported when a file is opened), GRIB2 (bit
 unpacking in a native codec built at first use), the Rayleigh-Bénard
 .bin and the .field format. ``io.torchscript`` reads the weights of
-PyTorch and TorchScript archives.
+PyTorch and TorchScript archives; ``io.writers`` writes fields out.
 """
 
 from correrender_tpu_torch.io.base import (
@@ -32,6 +32,7 @@ from correrender_tpu_torch.io.catalog import (
     load_catalog,
     open_dataset,
 )
+from correrender_tpu_torch.io import writers
 
 __all__ = [
     "VolumeLoader",
@@ -41,4 +42,5 @@ __all__ = [
     "DataSetInformation",
     "load_catalog",
     "open_dataset",
+    "writers",
 ]

@@ -1,7 +1,8 @@
 """Synthetic ensembles for tests and the chip smoke run.
 
-:func:`peak_profile`, :func:`synth_box_lambda_field` and
-:func:`synth_box_ensemble` are the port's own numpy copies of the JAX
+:func:`peak_profile`, :func:`synth_box_lambda_field`,
+:func:`synth_box_ensemble` and :func:`multivariate_gaussian_pair` are
+the port's own numpy copies of the JAX
 package's generators (``correrender_tpu/utils/fixtures.py``), so tests
 hand the same arrays to both packages and the port never imports a
 module of the JAX package. :func:`synth_box_stack` is the same
@@ -75,6 +76,25 @@ def synth_box_ensemble(xs: int = 32, ys: int = 32, zs: int = 8,
                   s1n[:, None, None, None])
     data = lam_abs[None] * s1 + (1.0 - lam_abs[None]) * s0
     return data.astype(dtype)
+
+
+def multivariate_gaussian_pair(num_points: int, members: int, rho: float,
+                               seed: int = 0):
+    """Two blocks of series with known cross-correlation ``rho``, drawn
+    from numpy's ``default_rng(seed)`` as the JAX package draws them.
+
+    Returns ``(a, b)`` of shape ``(num_points, members)`` each, float32;
+    every pair (a[i], b[j]) has population correlation rho.
+    """
+    if not 0.0 <= rho <= 1.0:
+        raise ValueError("rho must be in [0, 1]")
+    rng = np.random.default_rng(seed)
+    shared = rng.normal(size=(members,))
+    c = np.sqrt(rho)
+    s = np.sqrt(1.0 - rho)
+    a = c * shared + s * rng.normal(size=(num_points, members))
+    b = c * shared + s * rng.normal(size=(num_points, members))
+    return a.astype(np.float32), b.astype(np.float32)
 
 
 def synth_box_lambda_field_torch(xs: int = 128, ys: int = 128, zs: int = 32,

@@ -11,6 +11,10 @@ within the measures' bars, meshes, state files and CSVs equal apart from
 times. The t-SNE chart is held by its structure (ROADMAP C: it is
 unstable at a few hundred points in both packages).
 
+Also BASELINE's ``run_all`` (configs patched to small fakes, and on the
+CPU, where configs 1-3 refuse to run) and the package exports of
+``app``, ``render`` and ``io`` against the JAX ``__init__``s.
+
 The sampling harness's ``error_quantile`` ranks the found maximum among
 the exhaustive pair values. The box fixture holds many equal values, so
 a found maximum one ulp from JAX's moves its rank by the size of the tie:
@@ -665,3 +669,148 @@ def test_replicability_command(tmp_path):
     assert out.count("wrote") == 6
     assert load_png(tmp_path / "r" / "replicability_view0.png").shape == \
         (600, 800, 4)
+
+
+# -- run_all and the package exports -------------------------------------------
+
+CONFIGS = ("config1_synth_box_pearson_dvr", "config2_rank_correlations",
+           "config3_mutual_information", "config4_timelag_zarr_flythrough",
+           "config5_sharded_batch_render")
+
+
+def fake_config(name, seen, raises=None):
+    def fake(**kwargs):
+        seen.append((name, kwargs))
+        if raises:
+            raise raises
+        return {"config": name[len("configN_"):], "ms": 1.5,
+                "grid": [4, 4, 2], "stack": torch.zeros(3),
+                "frames": [torch.zeros(2)], "cameras": [Camera()]}
+
+    fake.__name__ = name
+    return fake
+
+
+def test_run_all_records_each_row_in_order(monkeypatch, tmp_path, capsys):
+    from correrender_tpu_torch.app import baseline_configs as bc
+
+    seen = []
+    for name in CONFIGS:
+        monkeypatch.setattr(bc, name, fake_config(
+            name, seen, RuntimeError("boom") if "config2" in name else None))
+    out = tmp_path / "res" / "rows.json"
+    rows = bc.run_all(str(out), device="cuda:3")
+    assert [name for name, _ in seen] == list(CONFIGS)  # all run, in order
+    assert all(kw["device"] == "cuda:3" for _, kw in seen)
+    assert seen[3][1]["tmp_dir"] == str(tmp_path / "res" / "config4")
+    assert seen[4][1]["tmp_dir"] == str(tmp_path / "res" / "config5")
+    assert rows[1] == {"config": "config2_rank_correlations",
+                       "error": "RuntimeError: boom",
+                       "wall_s": rows[1]["wall_s"]}
+    for i in (0, 2, 3, 4):  # tensors, frames and cameras dropped
+        assert set(rows[i]) == {"config", "ms", "grid", "wall_s"}
+        assert rows[i]["ms"] == 1.5 and rows[i]["grid"] == [4, 4, 2]
+    assert all(0 <= r["wall_s"] < 5 for r in rows)
+    assert json.loads(out.read_text()) == rows
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(line) for line in printed[-5:]] == rows
+
+
+def test_run_all_writes_under_build_by_default(monkeypatch, tmp_path):
+    from correrender_tpu_torch import native
+    from correrender_tpu_torch.app import baseline_configs as bc
+
+    assert bc.RESULTS_PATH.parent.parent == native.BUILD_ROOT
+    assert bc.RESULTS_PATH.name == "BASELINE_RESULTS.json"
+    seen = []
+    for name in CONFIGS:
+        monkeypatch.setattr(bc, name, fake_config(name, seen))
+    monkeypatch.setattr(bc, "RESULTS_PATH", tmp_path / "b" / "r.json")
+    rows = bc.run_all()
+    assert json.loads((tmp_path / "b" / "r.json").read_text()) == rows
+    assert seen[0][1] == {"device": "cuda"}
+
+
+def test_run_all_on_the_cpu_refuses_the_timed_configs(monkeypatch,
+                                                      tmp_path):
+    from correrender_tpu_torch.app import baseline_configs as bc
+
+    # Config 5 at its CPU size warps eight 1280x720 frames (about a
+    # minute on one thread): a fake stands in; config 4 runs.
+    seen = []
+    monkeypatch.setattr(bc, CONFIGS[4], fake_config(CONFIGS[4], seen))
+    rows = bc.run_all(str(tmp_path / "r.json"), device="cpu")
+    for i, row in enumerate(rows[:3]):
+        assert row == {
+            "config": CONFIGS[i], "wall_s": row["wall_s"],
+            "error": f"ValueError: config {i + 1} is timed with CUDA "
+                     "events: pass a CUDA device, not cpu"}
+    assert rows[3]["config"] == "timelag_zarr_flythrough"
+    assert rows[3]["device"] == "cpu" and rows[3]["total_ms"] > 0
+    assert all(os.path.exists(f) for f in rows[3]["frames"])
+    assert seen == [(CONFIGS[4], {"device": "cpu",
+                                  "tmp_dir": str(tmp_path / "config5")})]
+
+
+def jax_all(package: str) -> list:
+    import ast
+
+    path = os.path.join(os.path.dirname(__file__), "..", "correrender_tpu",
+                        package, "__init__.py")
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "__all__":
+            return [e.value for e in node.value.elts]
+    raise AssertionError(f"no __all__ in {path}")
+
+
+EXPORTS = [
+    ("render", "Camera", "render.camera"),
+    ("render", "orbit_camera", "render.camera"),
+    ("render", "TransferFunction", "render.tf"),
+    ("render", "dvr_render", "render.dvr"),
+    ("render", "sample_trilinear", "render.sampling"),
+    ("render", "dvr_shearwarp", "render.dvr_fast"),
+    ("render", "iso_render", "render.iso"),
+    ("render", "world_map_render", "render.worldmap"),
+    ("app", "Scene", "app.state"),
+    ("app", "RENDERING_MODE_IDS", "app.state"),
+    ("app", "perf", "app"),
+    ("app", "sampling_test", "app"),
+    ("app", "replicability", "app"),
+    ("io", "writers", "io"),
+]
+
+
+@pytest.mark.parametrize("package, name, home", EXPORTS,
+                         ids=[f"{p}.{n}" for p, n, _ in EXPORTS])
+def test_package_exports_are_the_modules_objects(package, name, home):
+    import importlib
+
+    pkg = importlib.import_module(f"correrender_tpu_torch.{package}")
+    got = getattr(pkg, name)
+    if home == package:  # a submodule
+        assert got is importlib.import_module(
+            f"correrender_tpu_torch.{package}.{name}")
+    else:
+        assert got is getattr(importlib.import_module(
+            f"correrender_tpu_torch.{home}"), name)
+
+
+@pytest.mark.parametrize("package", ["render", "app", "io"])
+def test_package_all_keeps_jaxs_names(package):
+    import importlib
+
+    pkg = importlib.import_module(f"correrender_tpu_torch.{package}")
+    assert set(jax_all(package)) <= set(pkg.__all__)
+    if package != "io":  # the port's io also exports open_dataset
+        assert pkg.__all__ == jax_all(package)
+    with pytest.raises(AttributeError):
+        getattr(pkg, "no_such_export")
+
+
+def test_readme_import_of_the_render_package():
+    from correrender_tpu_torch.render import Camera, TransferFunction
+    from correrender_tpu_torch.render.camera import Camera as C
+    from correrender_tpu_torch.render.tf import TransferFunction as T
+
+    assert Camera is C and TransferFunction is T

@@ -379,6 +379,81 @@ def test_cache_counts_tensor_bytes_and_evicts_lru():
     assert vd.cache.max_bytes == CPU_BUDGET_BYTES
 
 
+CACHE_SCRIPTS = {
+    # (op, key or size): puts of float32 slabs of n values, gets,
+    # reservations by bytes, releases by the reservation's index, clear.
+    "reserve_evicts_lru": [("put", 100), ("put", 100), ("put", 100),
+                           ("get", 0), ("reserve", 500), ("put", 50),
+                           ("release", 0), ("put", 200)],
+    "reserved_budget_holds": [("reserve", 800), ("put", 100),
+                              ("put", 100), ("put", 100), ("reserve", 0),
+                              ("release", 0), ("release", 0),
+                              ("put", 100), ("put", 100)],
+    "clear_keeps_reservations": [("put", 100), ("reserve", 400),
+                                 ("put", 100), ("clear", None),
+                                 ("put", 200), ("put", 100),
+                                 ("release", 0), ("put", 150)],
+    "over_budget": [("reserve", 1400), ("put", 10), ("put", 300),
+                    ("with", 200), ("put", 100), ("release", 0)],
+}
+
+
+@pytest.mark.parametrize("script", list(CACHE_SCRIPTS))
+def test_cache_reservations_match_jax(script):
+    from correrender_tpu.core.cache import LRUFieldCache as JaxCache
+
+    caches = {"jax": JaxCache(max_bytes=1200),
+              "port": LRUFieldCache(max_bytes=1200)}
+    tokens = {side: [] for side in caches}
+    for step, (op, arg) in enumerate(CACHE_SCRIPTS[script]):
+        for side, cache in caches.items():
+            key = ("f", step, 0)
+            if op == "put":
+                cache.put(key, np.zeros(arg, np.float32) if side == "jax"
+                          else torch.zeros(arg))
+                cache.put_min_max(key, (0.0, float(step)))
+            elif op == "get":
+                cache.get(("f", arg, 0))
+            elif op == "reserve":
+                tokens[side].append(cache.reserve_auxiliary(arg * 4))
+            elif op == "release":
+                tokens[side][arg].release()
+            elif op == "with":
+                with cache.reserve_auxiliary(arg * 4):
+                    cache.put(key, np.zeros(arg, np.float32)
+                              if side == "jax" else torch.zeros(arg))
+            else:
+                cache.clear()
+        jc, pc = caches["jax"], caches["port"]
+        assert list(pc._entries) == list(jc._entries), (script, step)
+        assert (pc.used_bytes, pc._aux_reserved) == (
+            jc.used_bytes, jc._aux_reserved), (script, step)
+        assert pc._min_max == jc._min_max, (script, step)
+
+
+@pytest.mark.parametrize("dims", [(1, 1, 1), (7, 6, 5), (250, 250, 250),
+                                  (720, 361, 37)])
+def test_num_voxels_and_field_exists_match_jax(dims):
+    grid = dict(xs=dims[0], ys=dims[1], zs=dims[2], es=2)
+    assert GridMetadata(**grid).num_voxels == JaxGrid(**grid).num_voxels
+    assert GridMetadata(**grid).num_voxels == int(np.prod(dims))
+    small = dict(xs=3, ys=2, zs=2, es=2)
+    vds = (VolumeData(GridMetadata(**small), device="cpu"),
+           JaxVolumeData(JaxGrid(**small)))
+    for vd in vds:
+        vd.add_field("a", lambda t, e: np.zeros((2, 2, 3), np.float32))
+        vd.add_calculator(_Derived("a", "b") if isinstance(vd, VolumeData)
+                          else _jax_derived("a", "b"))
+    for name in ("a", "b", "c"):
+        assert vds[0].field_exists(name) == vds[1].field_exists(name)
+    for vd in vds:
+        vd.remove_calculator("b")
+        vd.rename_field("a", "c")
+    for name in ("a", "b", "c"):
+        assert vds[0].field_exists(name) == vds[1].field_exists(name)
+    assert vds[0].field_exists("c") and not vds[0].field_exists("a")
+
+
 def test_all_nan_slab_min_max_is_nan():
     vd = VolumeData(GridMetadata(xs=2, ys=2, zs=2), device="cpu")
     vd.add_field("n", lambda t, e: np.full((2, 2, 2), np.nan, np.float32))

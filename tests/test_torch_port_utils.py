@@ -37,6 +37,7 @@ from correrender_tpu_torch.ops.precision import f32_conv
 from correrender_tpu_torch.render import mesh
 from correrender_tpu_torch.utils import (
     app_settings,
+    fixtures,
     histogram,
     logfile,
     lpips_alex,
@@ -407,3 +408,19 @@ def test_missing_gxx_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         native.build_library(mesh._SOURCE, tmp_path / "mesh",
                              "the isosurface extractor")
+
+
+@pytest.mark.parametrize("seed, rho", [(0, 0.5), (1, 0.0), (7, 1.0),
+                                       (3, 0.9)])
+def test_multivariate_gaussian_pair_is_jaxs(seed, rho):
+    got = fixtures.multivariate_gaussian_pair(40, 25, rho, seed=seed)
+    want = jfixtures.multivariate_gaussian_pair(40, 25, rho, seed=seed)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32 and g.shape == (40, 25)
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("rho", [-0.1, 1.5])
+def test_multivariate_gaussian_pair_refuses_rho_outside_0_1(rho):
+    with pytest.raises(ValueError, match="rho"):
+        fixtures.multivariate_gaussian_pair(4, 5, rho)
