@@ -91,6 +91,7 @@ from correrender_tpu_torch.render.worldmap import (
     rasterize_shapefile,
     world_map_render,
 )
+from correrender_tpu_torch.utils.profiling import zone
 
 #: Reference RenderingModes.hpp:62-73.
 RENDERING_MODE_IDS = [
@@ -318,45 +319,52 @@ class Scene:
         """One ``dvr`` renderer, clipped against the opaque depth."""
         vd = self.volume_data
         vol = vd.get_field(field, self.current_time, self.current_member)
-        tf = self.tf_for(field)
-        kwargs = dict(image_size=image_size, box=box,
-                      attenuation=r.get("attenuation", 100.0),
-                      background=(0, 0, 0, 0))
-        step_size = float(r.get("step_size", 0.1))
-        nan_mode = r.get("nan_mode", "ignore")
-        # Shear-warp composites one slice a voxel plane; other step
-        # sizes, NaN modes, model matrices, "exact" quality and eye-inside
-        # cameras take the exact marcher, which carries the restriction.
-        use_fast = (fast_dvr and vd.model_matrix is None
-                    and nan_mode == "ignore" and step_size == 0.1
-                    and r.get("quality") != "exact"
-                    and shearwarp_viable(cam, box))
-        if not use_fast:
-            return dvr_render_exact(
-                vol, cam, tf, restriction=restriction,
-                model_matrix=vd.model_matrix, nan_mode=nan_mode,
-                voxel_step=step_size, depth_limit=scene_depth,
-                prepared=self._exact_prepared(vol, field), **kwargs)
-        # The field's slab (with its dirty epoch) and the TF's uid key
-        # the layout. The JAX package also reuses a transposed copy of
-        # the field across TF changes; here K2 reads the field through
-        # strided views, so there is nothing to reuse.
-        pkey = ((field, self.current_time, self.current_member,
-                 vd.dirty_epoch(field)), tf.uid, shearwarp_camera_key(cam),
-                _restriction_signature(restriction))
-        prep = self._prep_cache_get(pkey)
-        if prep is None:
-            classified = None
-            if restriction is not None:
-                center, radius, metric = restriction
-                classified = apply_restriction_rgba(
-                    classify_volume(vol, tf.lut, tf.domain),
-                    restriction_mask(vol.shape, box, center, radius, metric,
-                                     device=vol.device))
-            prep = prepare_shearwarp(vol, tf, cam, classified=classified)
-            self._prep_cache_put(pkey, prep)
-        return dvr_shearwarp(vol, cam, tf, prepared=prep,
-                             depth_limit=scene_depth, **kwargs)
+        with zone("render.dvr"):
+            tf = self.tf_for(field)
+            kwargs = dict(image_size=image_size, box=box,
+                          attenuation=r.get("attenuation", 100.0),
+                          background=(0, 0, 0, 0))
+            step_size = float(r.get("step_size", 0.1))
+            nan_mode = r.get("nan_mode", "ignore")
+            # Shear-warp composites one slice a voxel plane; other step
+            # sizes, NaN modes, model matrices, "exact" quality and
+            # eye-inside cameras take the exact marcher, which carries the
+            # restriction.
+            use_fast = (fast_dvr and vd.model_matrix is None
+                        and nan_mode == "ignore" and step_size == 0.1
+                        and r.get("quality") != "exact"
+                        and shearwarp_viable(cam, box))
+            if not use_fast:
+                with zone("dvr.exact"):
+                    return dvr_render_exact(
+                        vol, cam, tf, restriction=restriction,
+                        model_matrix=vd.model_matrix, nan_mode=nan_mode,
+                        voxel_step=step_size, depth_limit=scene_depth,
+                        prepared=self._exact_prepared(vol, field),
+                        **kwargs)
+            # The field's slab (with its dirty epoch) and the TF's uid key
+            # the layout. The JAX package also reuses a transposed copy of
+            # the field across TF changes; here K2 reads the field through
+            # strided views, so there is nothing to reuse.
+            pkey = ((field, self.current_time, self.current_member,
+                     vd.dirty_epoch(field)), tf.uid,
+                    shearwarp_camera_key(cam),
+                    _restriction_signature(restriction))
+            prep = self._prep_cache_get(pkey)
+            if prep is None:
+                with zone("render.layout"):
+                    classified = None
+                    if restriction is not None:
+                        center, radius, metric = restriction
+                        classified = apply_restriction_rgba(
+                            classify_volume(vol, tf.lut, tf.domain),
+                            restriction_mask(vol.shape, box, center, radius,
+                                             metric, device=vol.device))
+                    prep = prepare_shearwarp(vol, tf, cam,
+                                             classified=classified)
+                self._prep_cache_put(pkey, prep)
+            return dvr_shearwarp(vol, cam, tf, prepared=prep,
+                                 depth_limit=scene_depth, **kwargs)
 
     def _render_slice(self, r, field, cam, box, image_size):
         """One ``slice`` renderer: (rgba, depth). An oblique plane comes
@@ -441,76 +449,78 @@ class Scene:
         merged depth; the reference-point markers, the legend and the
         diagram overlays go on top. Returns ``(H, W, 4)`` straight-alpha
         RGBA on the volume's device."""
-        cam = self.views[view]
-        vd = self.volume_data
-        box = vd.grid.render_box()
-        restriction = self._active_render_restriction(box)
-        image = None
-        opaque = []
-        dvr_jobs = []
-        for r in self.renderers:
-            if (r["view"] != view or r.get("hidden")
-                    or r["type"] in self.DIAGRAM_TYPES):
-                continue
-            field = r.get("field", vd.field_names[0])
-            if r["type"] == "dvr":
-                dvr_jobs.append((r, field))
-            elif r["type"] == "iso_ray":
-                opaque.append(self._render_iso(r, field, cam, box,
-                                               restriction, image_size,
-                                               fast_dvr))
-            elif r["type"] == "iso_raster":
-                vol = self._restrict_iso_volume(
-                    vd.get_field(field, self.current_time,
-                                 self.current_member), box, restriction)
-                opaque.append(iso_render(
-                    vol, cam, r.get("iso_value", 0.5), image_size=image_size,
-                    box=box, background=(0, 0, 0, 0),
-                    model_matrix=vd.model_matrix, return_depth=True))
-            elif r["type"] == "slice":
-                opaque.append(self._render_slice(r, field, cam, box,
-                                                 image_size))
-            elif r["type"] == "domain_outline":
-                opaque.append(outline_render(
-                    cam, box, image_size=image_size,
-                    color=r.get("color", (1, 1, 1, 1)), return_depth=True,
-                    device=vd.device))
-            elif r["type"] == "world_map":
-                # The ground plane below the data: the farthest layer, a
-                # plain underlay outside the depth merge.
-                image = world_map_render(
-                    cam, texture=self._world_texture(r),
-                    plane_height=r.get("plane_height",
-                                       float(box[0][1]) - 0.01),
-                    image_size=image_size, box=box, base_image=image,
-                    device=vd.device)
+        with zone("scene.render_view"):
+            cam = self.views[view]
+            vd = self.volume_data
+            box = vd.grid.render_box()
+            restriction = self._active_render_restriction(box)
+            image = None
+            opaque = []
+            dvr_jobs = []
+            for r in self.renderers:
+                if (r["view"] != view or r.get("hidden")
+                        or r["type"] in self.DIAGRAM_TYPES):
+                    continue
+                field = r.get("field", vd.field_names[0])
+                if r["type"] == "dvr":
+                    dvr_jobs.append((r, field))
+                elif r["type"] == "iso_ray":
+                    opaque.append(self._render_iso(r, field, cam, box,
+                                                   restriction, image_size,
+                                                   fast_dvr))
+                elif r["type"] == "iso_raster":
+                    vol = self._restrict_iso_volume(
+                        vd.get_field(field, self.current_time,
+                                     self.current_member), box, restriction)
+                    opaque.append(iso_render(
+                        vol, cam, r.get("iso_value", 0.5),
+                        image_size=image_size, box=box,
+                        background=(0, 0, 0, 0),
+                        model_matrix=vd.model_matrix, return_depth=True))
+                elif r["type"] == "slice":
+                    opaque.append(self._render_slice(r, field, cam, box,
+                                                     image_size))
+                elif r["type"] == "domain_outline":
+                    opaque.append(outline_render(
+                        cam, box, image_size=image_size,
+                        color=r.get("color", (1, 1, 1, 1)), return_depth=True,
+                        device=vd.device))
+                elif r["type"] == "world_map":
+                    # The ground plane below the data: the farthest layer, a
+                    # plain underlay outside the depth merge.
+                    image = world_map_render(
+                        cam, texture=self._world_texture(r),
+                        plane_height=r.get("plane_height",
+                                           float(box[0][1]) - 0.01),
+                        image_size=image_size, box=box, base_image=image,
+                        device=vd.device)
 
-        merged, scene_depth = _depth_merge(opaque)
-        if merged is not None:
-            image = _composite(image, merged)
-        for r, field in dvr_jobs:
-            image = _composite(image, self._render_dvr(
-                r, field, cam, box, restriction, image_size, fast_dvr,
-                scene_depth))
-        if image is None:
-            image = torch.zeros(tuple(image_size[::-1]) + (4,),
-                                dtype=torch.float32, device=vd.device)
-        if show_reference_points:
-            # The reference's renderViewCalculator pass
-            # (VolumeData.cpp:1948): one marker per calculator with a
-            # reference point.
-            for calc in vd.calculators.values():
-                point = getattr(calc, "reference_point", None)
-                if point is not None:
-                    image = render_reference_point_marker(
-                        cam, point, vd.grid.shape_zyx, box,
-                        image_size=image_size, base_image=image)
-        if show_legend:
-            image = self._draw_legend(image, view, image_size)
-        if show_diagram_overlays:
-            image = self._composite_diagram_overlays(image, view,
-                                                     image_size)
-        return image
+            merged, scene_depth = _depth_merge(opaque)
+            if merged is not None:
+                image = _composite(image, merged)
+            for r, field in dvr_jobs:
+                image = _composite(image, self._render_dvr(
+                    r, field, cam, box, restriction, image_size, fast_dvr,
+                    scene_depth))
+            if image is None:
+                image = torch.zeros(tuple(image_size[::-1]) + (4,),
+                                    dtype=torch.float32, device=vd.device)
+            if show_reference_points:
+                # The reference's renderViewCalculator pass
+                # (VolumeData.cpp:1948): one marker per calculator with a
+                # reference point.
+                for calc in vd.calculators.values():
+                    point = getattr(calc, "reference_point", None)
+                    if point is not None:
+                        image = render_reference_point_marker(
+                            cam, point, vd.grid.shape_zyx, box,
+                            image_size=image_size, base_image=image)
+            if show_legend:
+                image = self._draw_legend(image, view, image_size)
+            if show_diagram_overlays:
+                image = self._composite_diagram_overlays(image, view,
+                                                         image_size)
+            return image
 
     #: Diagram overlays kept by :meth:`_composite_diagram_overlays`.
     _OVERLAY_CACHE_CAP = 16

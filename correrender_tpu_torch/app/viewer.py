@@ -49,6 +49,7 @@ import torch
 
 from correrender_tpu_torch.app.camera_path import encode_png
 from correrender_tpu_torch.render.camera import Camera, orbit_camera
+from correrender_tpu_torch.utils.profiling import zone
 
 _EPS_PHI = 0.05  # keep the orbit off the poles (up-vector degeneracy)
 
@@ -293,25 +294,31 @@ class ViewerApp:
             if cached is not None and cached[0] == key and not continuous:
                 self.last_frame_timing = dict.fromkeys(_TIMING_KEYS, 0.0)
                 return cached[1], self.last_frame_timing
-            job = self._fused_dvr_job()
-            if job is not None:
-                img = self._render_fused(*job)
-            else:
-                # The overlays are drawn on the host below on both paths.
-                img = scene.render_view(
-                    self.view, image_size=self.image_size,
-                    fast_dvr=self.fast_dvr,
-                    show_reference_points=False, show_legend=False,
-                )
-            # Quantized on the device: one byte a channel crosses to the
-            # host. The overlays then draw on the quantized frame, which is
-            # quantized again for the PNG (the JAX viewer's order).
-            u8 = (img.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
-            arr = u8.cpu().numpy().astype(np.float32) / 255.0
+            with zone("viewer.frame"):
+                job = self._fused_dvr_job()
+                if job is not None:
+                    img = self._render_fused(*job)
+                else:
+                    # The overlays are drawn on the host below on both
+                    # paths.
+                    img = scene.render_view(
+                        self.view, image_size=self.image_size,
+                        fast_dvr=self.fast_dvr,
+                        show_reference_points=False, show_legend=False,
+                    )
+                # Quantized on the device: one byte a channel crosses to
+                # the host. The overlays then draw on the quantized frame,
+                # which is quantized again for the PNG (the JAX viewer's
+                # order).
+                u8 = (img.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+                arr = u8.cpu().numpy().astype(np.float32) / 255.0
             t_render = time.perf_counter()
-            arr = self._draw_overlays(arr, img.device)
+            with zone("viewer.overlay"):
+                arr = self._draw_overlays(arr, img.device)
             t_overlay = time.perf_counter()
-            png = encode_png((arr * 255.0 + 0.5).astype(np.uint8), level=1)
+            with zone("viewer.encode"):
+                png = encode_png((arr * 255.0 + 0.5).astype(np.uint8),
+                                 level=1)
             self._frame_cache = (key, png)
             t_end = time.perf_counter()
             # The server's split of the frame: render = the device work,

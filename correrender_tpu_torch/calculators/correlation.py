@@ -41,6 +41,7 @@ from correrender_tpu_torch.ops.registry import (
     is_measure_kraskov_mi,
     measure_from_id,
 )
+from correrender_tpu_torch.utils.profiling import zone
 
 #: Voxel-chunk memory budget of the chunked torch path.
 DEFAULT_CHUNK_BUDGET_BYTES = 256 << 20
@@ -193,21 +194,25 @@ def pearson_streamed(chunks, ref: torch.Tensor) -> torch.Tensor:
     Returns:
       ``(Z, Y, X)`` float32 Pearson field.
     """
-    acc, spatial, seen = None, None, 0
-    for chunk in chunks:
-        e = chunk.shape[0]
-        if acc is None:
-            spatial = chunk.shape[1:]
-            acc = torch.zeros((3, chunk[0].numel()), dtype=torch.float32,
-                              device=chunk.device)
-        elif chunk.shape[1:] != spatial:
-            raise ValueError(f"chunk {tuple(chunk.shape)} does not match "
-                             f"the grid {tuple(spatial)}")
-        chunk_moments_flat(chunk.reshape(e, -1), ref[seen:seen + e], acc=acc)
-        seen += e
-    if acc is None or seen != ref.shape[0]:
-        raise ValueError(f"the chunks hold {seen} members, ref {ref.shape[0]}")
-    return pearson_from_moments(acc[0], acc[1], acc[2], ref).reshape(spatial)
+    with zone("field.streamed"):
+        acc, spatial, seen = None, None, 0
+        for chunk in chunks:
+            e = chunk.shape[0]
+            if acc is None:
+                spatial = chunk.shape[1:]
+                acc = torch.zeros((3, chunk[0].numel()), dtype=torch.float32,
+                                  device=chunk.device)
+            elif chunk.shape[1:] != spatial:
+                raise ValueError(f"chunk {tuple(chunk.shape)} does not "
+                                 f"match the grid {tuple(spatial)}")
+            chunk_moments_flat(chunk.reshape(e, -1), ref[seen:seen + e],
+                               acc=acc)
+            seen += e
+        if acc is None or seen != ref.shape[0]:
+            raise ValueError(f"the chunks hold {seen} members, "
+                             f"ref {ref.shape[0]}")
+        return pearson_from_moments(acc[0], acc[1], acc[2],
+                                    ref).reshape(spatial)
 
 
 def correlate_requests(

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from correrender_tpu_torch.core.cache import LRUFieldCache
+from correrender_tpu_torch.utils.profiling import zone
 
 
 class FieldType(enum.Enum):
@@ -182,7 +183,8 @@ class VolumeData:
             raise KeyError(
                 f"field {name!r} not found; available: {self.field_names}")
         _, provider = self._providers[name]
-        arr = provider(time, member)
+        with zone("field.compute"):
+            arr = provider(time, member)
         if isinstance(arr, np.ndarray):
             arr = np.ascontiguousarray(arr, np.float32)
             # A decoder may return a read-only view of the file's bytes,

@@ -42,6 +42,7 @@ from correrender_tpu_torch.render.camera import (
     ray_dirs_affine,
 )
 from correrender_tpu_torch.render.dvr import blend_background, dvr_render
+from correrender_tpu_torch.utils.profiling import zone
 
 _EPS = 1e-6
 _WARP_CHUNK = 16  # rows (pass A) or columns (pass B) per warp product
@@ -273,24 +274,26 @@ def dvr_shearwarp(
     nv, nu = prepared["vu"]
 
     dev = volume.device
-    geo = shearwarp_geometry(
-        camera, box_min, box_max, a, in_plane, flip, n_slices, nv, nu,
-        image_size, intermediate_scale, device=dev,
-    )
     width, height = image_size
-    kstop = None
-    if depth_limit is not None:
-        kstop = _depth_to_kstop(depth_limit, camera, width, height, in_plane,
-                                a, eye, geo)
-    inter_rgb, inter_a = shearwarp_composite(
-        prepared["cf"], **composite_inputs(geo, dev), attenuation=attenuation,
-        kstop=kstop)
+    with zone("dvr.composite"):
+        geo = shearwarp_geometry(
+            camera, box_min, box_max, a, in_plane, flip, n_slices, nv, nu,
+            image_size, intermediate_scale, device=dev,
+        )
+        kstop = None
+        if depth_limit is not None:
+            kstop = _depth_to_kstop(depth_limit, camera, width, height,
+                                    in_plane, a, eye, geo)
+        inter_rgb, inter_a = shearwarp_composite(
+            prepared["cf"], **composite_inputs(geo, dev),
+            attenuation=attenuation, kstop=kstop)
     stage("composite", (inter_rgb, inter_a, geo))
 
-    image = warp_to_screen(
-        inter_rgb, inter_a, camera, width, height, in_plane, a, eye,
-        geo["z_ref"], geo["grid_u"], geo["grid_v"], background,
-    )
+    with zone("dvr.warp"):
+        image = warp_to_screen(
+            inter_rgb, inter_a, camera, width, height, in_plane, a, eye,
+            geo["z_ref"], geo["grid_u"], geo["grid_v"], background,
+        )
     stage("warp", image)
     return image
 

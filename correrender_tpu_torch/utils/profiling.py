@@ -1,21 +1,44 @@
 """Profiling and tracing hooks.
 
 Counterpart of ``correrender_tpu/utils/profiling.py`` (the reference's
-Tracy zones and GPU timers): named zones that appear in a
-``torch.profiler`` trace and add their wall time to a registry for
-:func:`timing_summary`, and :func:`trace`, which writes a Chrome trace.
+Tracy zones and GPU timers): :func:`zone` names a stage of the program in
+a ``torch.profiler`` trace, and :func:`trace` writes such a trace.
+
+The zones are read from the trace, never from a timer of their own: the
+profiler records each open zone as a ``user_annotation`` range on the
+host, and CUPTI records the runtime calls made inside it and the kernels,
+copies and sets those calls launch, on the same clock and linked by their
+correlation ids. A zone's device time is then the device time of the
+work launched inside it, which a reader of the trace sums (the
+benchmark's ``program_trace.py``). The zones of the port:
+
+- ``scene.render_view``: ``Scene.render_view``, one frame of a view;
+- ``field.compute``: ``VolumeData.get_field`` on a cache miss, the
+  provider (a calculator's field);
+- ``field.streamed``: ``pearson_streamed``, B1 over the chunks, then
+  the assembly;
+- ``render.dvr``: one ``dvr`` renderer of the Scene, its field ready;
+- ``render.layout``: the Scene's shear-warp layout built on a cache miss
+  (the classification, K2);
+- ``dvr.exact``: a ``dvr`` renderer's exact marcher (B5);
+- ``dvr.composite``: ``dvr_shearwarp``'s geometry and composite (K3);
+- ``dvr.warp``: ``dvr_shearwarp``'s warp to the screen;
+- ``viewer.frame``, ``viewer.overlay``, ``viewer.encode``: the viewer's
+  render (the device work, the quantize and the copy to the host), its
+  host overlays and its PNG encode.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
 
 import torch
 
-_TIMINGS: dict[str, list] = defaultdict(list)
+_profiler_enabled = torch._C._autograd._profiler_enabled
+#: What :func:`zone` returns while no profiler records: one shared
+#: context that does nothing.
+_IDLE = contextlib.nullcontext()
 
 
 def sync(x):
@@ -35,17 +58,21 @@ def sync(x):
     return x
 
 
-@contextlib.contextmanager
 def zone(name: str):
-    """Named timing zone (a Tracy zone's role): a ``record_function``
-    range in a profiler trace, its wall time kept for
-    :func:`timing_summary`."""
-    with torch.profiler.record_function(name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _TIMINGS[name].append(time.perf_counter() - t0)
+    """A named stage of the program (a Tracy zone's role), as a context
+    manager: ``with zone("dvr.warp"): ...``.
+
+    While a profiler records, the zone is a ``record_function(name)``
+    range, a ``user_annotation`` in the profiler's Chrome trace beside
+    the kernels that the work inside it launches. Otherwise it is one
+    shared no-op context: the profiler's flag is read once on entry, and
+    nothing is recorded, kept or allocated. The zone records no CUDA
+    event and never waits for the device; its device time is read from
+    the trace (see the module docstring).
+    """
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _IDLE
 
 
 @contextlib.contextmanager
@@ -59,19 +86,3 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def timing_summary(reset: bool = True) -> dict:
-    """Aggregated zone timings in milliseconds."""
-    out = {}
-    for name, samples in _TIMINGS.items():
-        arr = sorted(samples)
-        out[name] = {
-            "count": len(arr),
-            "total_ms": sum(arr) * 1e3,
-            "mean_ms": sum(arr) / len(arr) * 1e3,
-            "median_ms": arr[len(arr) // 2] * 1e3,
-        }
-    if reset:
-        _TIMINGS.clear()
-    return out

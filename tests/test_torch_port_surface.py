@@ -53,6 +53,9 @@ ALLOWED = {
     "utils.compile_cache": "the Mosaic compile cache (ROADMAP.md, Do not "
                            "port): the port's kernels are built once by "
                            "ops/cuda/_build.py",
+    "utils.profiling:timing_summary": "host enqueue times read by nothing; "
+                                      "the port's zones are read from the "
+                                      "profiler's trace (PERF.md §3)",
 }
 
 

@@ -12,7 +12,6 @@ relative of JAX's and 1e-4 of the checked-in torch goldens
 import json
 import os
 import re
-import time
 
 import numpy as np
 import pytest
@@ -29,7 +28,6 @@ from correrender_tpu.utils import logfile as jax_logfile
 from correrender_tpu.utils import lpips_alex as jax_lpips
 from correrender_tpu.utils import metrics as jax_metrics
 from correrender_tpu.utils import pathwatch as jax_pathwatch
-from correrender_tpu.utils import profiling as jax_profiling
 
 from correrender_tpu_torch import native
 from correrender_tpu_torch.ops import noise
@@ -116,20 +114,6 @@ def test_min_max_equal_jax():
 
 
 # -- profiling ---------------------------------------------------------------
-
-def test_zones_and_summary_match_jax(tmp_path):
-    for mod in (profiling, jax_profiling):
-        mod.timing_summary(reset=True)
-        for _ in range(3):
-            with mod.zone("step"):
-                time.sleep(0.001)
-    got = profiling.timing_summary()
-    want = jax_profiling.timing_summary()
-    assert got.keys() == want.keys() == {"step"}
-    assert got["step"].keys() == want["step"].keys()
-    assert got["step"]["count"] == 3 and got["step"]["total_ms"] >= 3.0
-    assert profiling.timing_summary() == {}
-
 
 def test_sync_returns_its_argument_and_trace_writes_chrome_json(tmp_path):
     x = {"a": [torch.ones(3)], "b": None}
