@@ -50,7 +50,13 @@ Phases, each asserting; any failure exits non-zero:
    the median of 5 frames' stage times (CUDA
    events at the stage boundaries of ``render_correlation_fast``, through
    its ``on_stage`` hook), each beside the plain version's time on the
-   same inputs; the peak device memory.
+   same inputs; the peak device memory. Then the warp kernel
+   (``csrc/warp.cu``) against its plain version at 1920×1080 on
+   linear_4x4's grid: config 1's camera and 16 cameras of the orbit
+   cell's turn through ``dvr_shearwarp`` (one launch a frame), a noise
+   intermediate, stored plain and transposed, through each of the four
+   pass orders forced; the pixels not bit-equal (0 expected, max-abs bar
+   1e-6), the kernel's time beside the plain version's and the bound.
 6. Where the time goes: 3 headline frames under ``torch.profiler``, the
    device time per kernel group and the device's busy share.
 7. Exact headline: the same 250³ × 100 stack, the K1 field, then
@@ -138,9 +144,9 @@ Phases, each asserting; any failure exits non-zero:
    (a) the reference point moved (K1, K2, K3, the warp); (b) the camera
    moved within its principal axis (no K2: the layout is reused); (c)
    the TF changed (K2, K3); (d) ``quality="exact"`` (B5); (e) ``iso_ray``
-   exact (B6) and fast (``render/iso_fast.py``, no kernel; its first-hit
-   scan held to the same scan on the CPU, one thread, on every 24th row
-   of the intermediate rays); (f) ``iso_ray`` and ``dvr`` in one view
+   exact (B6) and fast (``render/iso_fast.py``, the warp kernel; its
+   first-hit scan held to the same scan on the CPU, one thread, on every
+   24th row of the intermediate rays); (f) ``iso_ray`` and ``dvr`` in one view
    (the depth merge, then K3 with kstop); (g) a restricted calculator
    (B3), and its ``iso_ray`` frame (B6 on the NaN-filled slab, the
    layout built each frame, beside the same call with the layout built
@@ -623,7 +629,7 @@ def phase_build() -> None:
                "raymarch_dvr_kernel", "raymarch_iso_kernel",
                "spearman_regs_kernel", "spearman_shared_kernel",
                "kendall_kernel", "ksg_kernel", "ksg_banded_kernel",
-               "moments_kernel")
+               "moments_kernel", "homography_warp_kernel")
     entry = "?"
     for line in log.splitlines():
         if "entry function" in line:  # ptxas names the kernel first
@@ -1006,7 +1012,8 @@ def phase_headline(dev, card: str, errs: dict, stack: torch.Tensor):
     from correrender_tpu_torch.ops.cuda.pearson_kernel import pearson_plain
     from correrender_tpu_torch.ops.cuda.shearwarp_kernel import (
         classify_to_cf_plain, shearwarp_composite_plain)
-    from correrender_tpu_torch.render.dvr_fast import composite_inputs
+    from correrender_tpu_torch.ops.cuda.warp_kernel import warp_two_pass_plain
+    from correrender_tpu_torch.render import dvr_fast as df
     from correrender_tpu_torch.render.pipeline import (
         reference_series, render_correlation_fast)
 
@@ -1032,6 +1039,7 @@ def phase_headline(dev, card: str, errs: dict, stack: torch.Tensor):
     launches = dict(_build.LAUNCHES)
     print(f"[headline] main-path launches: {launches}")
     assert all(launches[k] > 0 for k in FAST_PATH), launches
+    assert launches["warp_to_screen"] == 1, launches
     assert img.shape == image_size[::-1] + (4,)
     assert bool(torch.isfinite(img).all())
 
@@ -1060,7 +1068,7 @@ def phase_headline(dev, card: str, errs: dict, stack: torch.Tensor):
     errs["classify_to_cf"] = max(errs["classify_to_cf"], err_cf)
     print(f"[headline] slices {tuple(cf.shape[:3])}, intermediate "
           f"{geo['hi_res']}x{geo['wi_res']}")
-    comp_args = composite_inputs(geo, dev)
+    comp_args = df.composite_inputs(geo, dev)
     rgb_p, alpha_p = shearwarp_composite_plain(cf, **comp_args,
                                                attenuation=100.0)
     err_comp = max(max_abs(rgb, rgb_p), max_abs(alpha, alpha_p))
@@ -1077,6 +1085,21 @@ def phase_headline(dev, card: str, errs: dict, stack: torch.Tensor):
     assert err_comp <= ATOL_COMPOSITE
     errs["shearwarp_composite"] = max(errs["shearwarp_composite"], err_comp)
     del rgb_p, alpha_p, shipped, inline, fused
+    eye, a, in_plane, _ = df.shearwarp_axes(cam)
+    coeffs, sign_ok, order = df.warp_args(
+        cam, *image_size, in_plane, a, eye, geo["z_ref"], geo["grid_u"],
+        geo["grid_v"], *alpha.shape)
+    warp_args = (rgb, alpha, coeffs, sign_ok, (0.0, 0.0, 0.0, 1.0), *order,
+                 *image_size)
+    warp_p = warp_two_pass_plain(*warp_args)
+    err_warp = max_abs(img, warp_p)
+    unequal = int((img != warp_p).any(-1).sum())
+    print(f"[headline] warp {geo['hi_res']}x{geo['wi_res']} -> "
+          f"{image_size[0]}x{image_size[1]}, pass order {order}: "
+          f"max|kernel-plain| {err_warp:.3e} (bar {WARP_ATOL}), {unequal} "
+          f"pixels not bit-equal")
+    assert err_warp <= WARP_ATOL, err_warp
+    del warp_p
 
     # Stage times of the main path (CUDA events at the stage boundaries),
     # median of 5 frames, and each plain version on the same inputs.
@@ -1093,10 +1116,11 @@ def phase_headline(dev, card: str, errs: dict, stack: torch.Tensor):
         "composite": median_ms(lambda: shearwarp_composite_plain(
             cf, **comp_args, attenuation=100.0)),
     }
-    med_plain["warp"] = med["warp"]  # the same torch code either way
+    med_plain["warp"] = median_ms(lambda: warp_two_pass_plain(*warp_args),
+                                  reps=3)
     med_plain["frame"] = sum(med_plain.values())
     notes = {"field": " (K1 Pearson; includes the reference gather)",
-             "warp": " (torch bmm, no kernel; plain is the same code)",
+             "warp": " (csrc/warp.cu; plain: dense tent weights and bmm)",
              "frame": " (plain: sum of the plain stages)"}
     for stage in ("field", "classify", "composite", "warp", "frame"):
         print(f"[headline {card}] {stage}: kernel {med[stage]:.3f} ms, "
@@ -1126,6 +1150,116 @@ def phase_headline(dev, card: str, errs: dict, stack: torch.Tensor):
     stats = {k: (launches[k], med[stage_of[k]], med_plain[stage_of[k]])
              + bounds[k] for k in FAST_PATH}
     return stats, frame
+
+
+WARP_ATOL = 1e-6  # the warp kernel against its plain version (0 expected)
+WARP_ORBIT = 16  # cameras of the ksg-orbit cell's turn of 256
+
+
+def phase_warp(dev, card: str) -> None:
+    """The warp kernel (``csrc/warp.cu``) against its plain version at
+    1920×1080 on linear_4x4's grid (128×128×32, the Scene cells'), a
+    random field under config 1's TF: config 1's camera and WARP_ORBIT
+    cameras of the orbit cell's turn through ``dvr_shearwarp`` (one
+    launch a frame, the frame against the plain warp of the frame's own
+    intermediate); then a noise intermediate, stored plain and
+    transposed, through each of the four pass orders forced. Prints the
+    pixels that are not bit-equal (0 expected), and the kernel's time
+    beside the plain version's and the bound."""
+    from correrender_tpu_torch.app.baseline_configs import (
+        config1_camera, config1_transfer_function)
+    from correrender_tpu_torch.ops.cuda import _build
+    from correrender_tpu_torch.ops.cuda.warp_kernel import (
+        warp_two_pass, warp_two_pass_plain)
+    from correrender_tpu_torch.render import dvr_fast as df
+    from correrender_tpu_torch.render.camera import (
+        default_render_box, orbit_camera)
+
+    xs, ys, zs = CONFIG1_GRID
+    width, height = HEADLINE_IMAGE
+    gen = torch.Generator(device=dev).manual_seed(7)
+    field = torch.rand((zs, ys, xs), generator=gen, device=dev) * 2.0 - 1.0
+    tf = config1_transfer_function(dev)
+    box = default_render_box((zs, ys, xs))
+    bg = (0.0, 0.0, 0.0, 1.0)
+    cams = [("config 1", config1_camera())] + [
+        (f"orbit {k}/256", orbit_camera(2 * math.pi * k / 256, 0.3,
+                                        radius=0.85))
+        for k in range(0, 256, 256 // WARP_ORBIT)]
+    worst, unequal, orders, timed = 0.0, 0, {}, None
+    for label, cam in cams:
+        assert df.shearwarp_viable(cam, box), label
+        clock = StageClock()
+        _build.reset_launch_counts()
+        img = df.dvr_shearwarp(field, cam, tf, image_size=HEADLINE_IMAGE,
+                               box=box, background=bg, on_stage=clock)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["warp_to_screen"] == 1, (label, _build.LAUNCHES)
+        rgb, alpha, geo = clock.results["composite"]
+        eye, a, in_plane, _ = df.shearwarp_axes(cam)
+        coeffs, sign_ok, order = df.warp_args(
+            cam, width, height, in_plane, a, eye, geo["z_ref"],
+            geo["grid_u"], geo["grid_v"], *alpha.shape)
+        want = warp_two_pass_plain(rgb, alpha, coeffs, sign_ok, bg, *order,
+                                   width, height)
+        assert img.shape == want.shape and img.is_contiguous()
+        worst = max(worst, max_abs(img, want))
+        unequal += int((img != want).any(-1).sum())
+        orders[order] = orders.get(order, 0) + 1
+        if timed is None:
+            timed = (rgb, alpha, coeffs, sign_ok, bg, *order, width, height)
+        del img, want
+    print(f"[warp {card}] {len(cams)} frames ({width}x{height}, pass orders "
+          f"(t_int, t_out): {orders}): one launch a frame; max|kernel-plain| "
+          f"{worst:.3e} (bar {WARP_ATOL}), {unequal} pixels not bit-equal")
+
+    # A noise intermediate on config 1's grid through each pass order.
+    cam = cams[0][1]
+    eye, a, in_plane, flip = df.shearwarp_axes(cam)
+    s, nv, nu = ((zs, ys, xs)[p] for p in df.slice_perm(a, in_plane))
+    geo = df.shearwarp_geometry(cam, box[0], box[1], a, in_plane, flip, s,
+                                nv, nu, HEADLINE_IMAGE, 1.0, device=dev)
+    hi, wi = geo["hi_res"], geo["wi_res"]
+    alpha = torch.rand((hi, wi), generator=gen, device=dev)
+    rgb = torch.rand((hi, wi, 3), generator=gen, device=dev) * alpha[..., None]
+    rgb_t = rgb.transpose(0, 1).contiguous().transpose(0, 1)
+    alpha_t = alpha.transpose(0, 1).contiguous().transpose(0, 1)
+    coeffs, sign_ok, _ = df.warp_args(cam, width, height, in_plane, a, eye,
+                                      geo["z_ref"], geo["grid_u"],
+                                      geo["grid_v"], hi, wi)
+    bg_n = (0.1, 0.2, 0.3, 0.5)
+    for order in ((False, False), (False, True), (True, False), (True, True)):
+        want = warp_two_pass_plain(rgb, alpha, coeffs, sign_ok, bg_n, *order,
+                                   width, height)
+        for layout, (r_in, a_in) in (("plain", (rgb, alpha)),
+                                     ("transposed", (rgb_t, alpha_t))):
+            _build.reset_launch_counts()
+            got = warp_two_pass(r_in, a_in, coeffs, sign_ok, bg_n, *order,
+                                width, height)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["warp_to_screen"] == 1
+            err = max_abs(got, want)
+            bad = int((got != want).any(-1).sum())
+            ms = median_ms(lambda: warp_two_pass(
+                r_in, a_in, coeffs, sign_ok, bg_n, *order, width, height))
+            print(f"[warp {card}] noise {hi}x{wi}, order {order}, "
+                  f"{layout} storage: max|kernel-plain| {err:.3e}, {bad} "
+                  f"pixels not bit-equal, kernel {ms:.4f} ms")
+            worst, unequal = max(worst, err), unequal + bad
+    assert worst <= WARP_ATOL, worst
+
+    # Times on config 1's frame: the kernel, the plain, the bound.
+    hi, wi = timed[1].shape
+    kernel_ms = median_ms(lambda: warp_two_pass(*timed), reps=20)
+    plain_ms = median_ms(lambda: warp_two_pass_plain(*timed), reps=3)
+    # The f32 intermediate read once (16 bytes a pixel), the f32 RGBA
+    # frame written once; about 60 flops a screen pixel.
+    bound_ms, by = bound(16 * hi * wi + 16 * width * height,
+                         60 * width * height)
+    print(f"[warp {card}] config 1's frame ({hi}x{wi} -> {width}x{height}): "
+          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}), {100 * bound_ms / kernel_ms:.1f}% of "
+          f"the kernel's time; {unequal} pixels not bit-equal in the phase")
 
 
 def phase_profile(label: str, frame, groups: dict, required,
@@ -2606,7 +2740,7 @@ def phase_scene(dev, card: str, stack: torch.Tensor) -> None:
             "K1 pearson_tiled_kernel": "pearson_tiled_kernel",
             "K2 classify_cf_kernel": "classify_cf_kernel",
             "K3 composite_kernel": "composite_kernel",
-            "warp bmm (cuBLAS gemm)": "gemm"},
+            "warp homography_warp_kernel": "homography_warp_kernel"},
         ("K1 pearson_tiled_kernel", "K3 composite_kernel"))
     # (b) The camera moved within its principal axis.
     times["b"], _ = scene_frame_check(
@@ -2644,15 +2778,16 @@ def phase_scene(dev, card: str, stack: torch.Tensor) -> None:
     renderers(("iso_ray", {"iso_value": ISO_VALUE}))
     stages = {}
     times["e fast"], launches = scene_frame_check(
-        card, "(e) iso_ray fast (iso_fast: torch, no kernel)", render,
-        no_change,
+        card, "(e) iso_ray fast (iso_fast: torch, then the warp kernel)",
+        render, no_change,
         lambda: iso_shearwarp(field(), cam, ISO_VALUE, axial_supersample=2,
                               on_stage=stages.__setitem__, **iso_kw)[0])
-    assert not launches, launches
+    assert set(launches) == {"warp_to_screen"}, launches
     iso_scan_rows_cpu(card, stages, ISO_VALUE)
     phase_profile(f"profile scene (e) fast iso {card}", render, {
-        "tent products (cuBLAS gemm)": "gemm"},
-        ("tent products (cuBLAS gemm)",))
+        "tent products (cuBLAS gemm)": "gemm",
+        "warp homography_warp_kernel": "homography_warp_kernel"},
+        ("tent products (cuBLAS gemm)", "warp homography_warp_kernel"))
     del stages
     # (f) iso_ray and dvr in one view.
     renderers(("iso_ray", {"iso_value": ISO_VALUE}), ("dvr", {}))
@@ -3517,15 +3652,16 @@ def phase_config5(dev, card: str) -> None:
         wall = time.perf_counter() - t0
         dvr_sharded.dvr_shearwarp = gathered
         # The config's own run: 8 sharded frames (warm-up and timed
-        # pass), each K2 then K3 once; the Pearson field is torch moments
-        # (no kernel), and nothing classifies with B3.
+        # pass), each K2, K3 and the warp once; the Pearson field is
+        # torch moments (no kernel), and nothing classifies with B3.
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
         n_frames = 2 * res["batch_renders"]
         print(f"[config5 {card}] launches of config5_sharded_batch_render "
               f"({n_frames} frames): {launches}; gathered fallbacks "
               f"{len(fallbacks)}")
         assert launches == {"classify_to_cf": n_frames,
-                            "shearwarp_composite": n_frames}, launches
+                            "shearwarp_composite": n_frames,
+                            "warp_to_screen": n_frames}, launches
         assert not fallbacks, "a config-5 frame took the gathered route"
         assert dist.get_backend() == "nccl" and res["devices"] == 1
         mesh, field, tf = res["mesh"], res["field"], res["tf"]
@@ -4182,7 +4318,7 @@ def phase_decoders(dev, card: str) -> None:
                                                      device=dev),
                       "GRIB2 Pearson field",
                       {"pearson": 1, "classify_to_cf": 1,
-                       "shearwarp_composite": 1})
+                       "shearwarp_composite": 1, "warp_to_screen": 1})
         del vd, calc
 
         # (b) A 250^3 field in four formats.
@@ -4229,7 +4365,8 @@ def phase_decoders(dev, card: str) -> None:
                   f" the card equal to the bit to what was written")
             decoder_frame(card, vd, name, TransferFunction.from_colormap(
                 "coolwarm", domain=(-1, 1), device=dev), f"{ext} DVR",
-                {"classify_to_cf": 1, "shearwarp_composite": 1})
+                {"classify_to_cf": 1, "shearwarp_composite": 1,
+                 "warp_to_screen": 1})
             del vd, got, on_card, arr
     finally:
         shutil.rmtree(DECODERS_DIR, ignore_errors=True)
@@ -5917,7 +6054,8 @@ def phase_viewer(dev, card: str, vd, name: str) -> None:
             trip = (time.perf_counter() - t0) * 1e3
             assert reply["ok"], reply
             viewer_launches({"pearson": 1, "classify_to_cf": 1,
-                             "shearwarp_composite": 1}, "point move")
+                             "shearwarp_composite": 1, "warp_to_screen": 1},
+                            "point move")
             timing = client.api({"op": "timing"})
             if i:  # the first move is a warm-up
                 rows.append((trip, timing, len(png), header_ms))
@@ -5978,7 +6116,8 @@ def phase_viewer(dev, card: str, vd, name: str) -> None:
         client.frame()
         spearman_ms = (time.perf_counter() - t0) * 1e3
         spearman = viewer_launches({"spearman": 1, "classify_to_cf": 1,
-                                    "shearwarp_composite": 1},
+                                    "shearwarp_composite": 1,
+                                    "warp_to_screen": 1},
                                    "spearman frame")
         spearman_split = client.api({"op": "timing"})
         # Exact quality: the Scene's exact DVR (B5) on the Pearson field
@@ -6008,7 +6147,8 @@ def phase_viewer(dev, card: str, vd, name: str) -> None:
         fitted, _ = client.frame()
         fitted_ms = (time.perf_counter() - t0) * 1e3
         viewer_launches({"pearson": 1, "classify_to_cf": 1,
-                         "shearwarp_composite": 1}, "fitted-TF frame")
+                         "shearwarp_composite": 1, "warp_to_screen": 1},
+                        "fitted-TF frame")
         assert decode_png(fitted).shape == (h, w, 4)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev) - base
@@ -6050,14 +6190,15 @@ def main() -> None:
     side = HEADLINE_SIDE
     stack = synth_box_stack(side, side, side, HEADLINE_MEMBERS, gen, dev)
     stats, frame = phase_headline(dev, card, errs, stack)
+    phase_warp(dev, card)
     phase_profile(f"profile fast {card}", frame, {
         "K1 pearson_tiled_kernel": "pearson_tiled_kernel",
         "K2 classify_cf_kernel": "classify_cf_kernel",
         "K3 composite_taps_kernel": "composite_taps_kernel",
         "K3 composite_kernel": "composite_kernel",
-        "warp bmm (cuBLAS gemm)": "gemm"},
+        "warp homography_warp_kernel": "homography_warp_kernel"},
         ("K1 pearson_tiled_kernel", "K3 composite_taps_kernel",
-         "K3 composite_kernel"))
+         "K3 composite_kernel", "warp homography_warp_kernel"))
     exact_stats, exact_frame = phase_exact(dev, card, errs, stack)
     stats.update(exact_stats)
     phase_profile(f"profile exact {card}", exact_frame, {

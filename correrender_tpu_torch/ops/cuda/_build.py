@@ -33,7 +33,7 @@ _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LAUNCHES = {"pearson": 0, "classify_to_cf": 0, "shearwarp_composite": 0,
             "raymarch_dvr": 0, "classify_volume": 0, "spearman": 0,
             "kendall": 0, "mi_ksg": 0, "mi_ksg_banded": 0,
-            "chunk_moments": 0, "raymarch_iso": 0}
+            "chunk_moments": 0, "raymarch_iso": 0, "warp_to_screen": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -107,6 +107,11 @@ _SIGNATURES = {
     # w_band, k, estimator
     "correrender_mi_ksg_banded": [
         _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P,
+    ],
+    # rgb and its three strides, alpha and its two, hi, wi, t_int, t_out,
+    # params (host), out, width, height
+    "correrender_warp": [
+        _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P,
     ],
 }
 

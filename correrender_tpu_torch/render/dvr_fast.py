@@ -13,7 +13,8 @@ Counterpart of ``correrender_tpu/render/dvr_fast.py``. A frame is:
    slice-plane intersection an exact sample of it (K3). The volume is
    zero outside the box: exact box clipping by zero tent weights.
 3. **Warp**: one 2D homography from the reference plane to the screen,
-   two passes of per-line tent resampling as large matrix products.
+   two passes of per-line tent resampling (``ops/cuda/warp_kernel.py``:
+   one kernel on the card, dense tent-weight products on the CPU).
 
 Reference semantics: DvrShader.glsl compositing (alpha = 1 −
 exp(−τ·Δs·attenuation), premultiplied OVER, background blend,
@@ -33,10 +34,9 @@ import torch
 from correrender_tpu_torch.ops.cuda.shearwarp_kernel import (
     classify_to_cf,
     prepare_cvol_cf,
-    round_bf16,
     shearwarp_composite,
 )
-from correrender_tpu_torch.ops.precision import f32_matmul
+from correrender_tpu_torch.ops.cuda.warp_kernel import warp_two_pass
 from correrender_tpu_torch.render.camera import (
     default_render_box,
     ray_dirs_affine,
@@ -45,7 +45,6 @@ from correrender_tpu_torch.render.dvr import blend_background, dvr_render
 from correrender_tpu_torch.utils.profiling import zone
 
 _EPS = 1e-6
-_WARP_CHUNK = 16  # rows (pass A) or columns (pass B) per warp product
 _WORLD_TO_ARR = {2: 0, 1: 1, 0: 2}  # volume axes (z, y, x) = world (2, 1, 0)
 
 
@@ -370,11 +369,36 @@ def warp_to_screen(
     all; otherwise it is scored by the pole's distance outside the used
     range. The gather warp runs only if all four fail.
     """
-    hi_res, wi_res = inter_a.shape
-    e_a = eye[a]
-    a_coef, b_coef, c_coef = _homography_coeffs(
-        camera, width, height, in_plane, a, eye, z_ref, grid_u, grid_v
+    coeffs, sign_ok, order = warp_args(
+        camera, width, height, in_plane, a, eye, z_ref, grid_u, grid_v,
+        *inter_a.shape,
     )
+    if order is None:
+        return _gather_warp(inter_rgb, inter_a, camera, width, height,
+                            in_plane, a, z_ref, grid_u, grid_v, background)
+    return warp_two_pass(inter_rgb, inter_a, coeffs, sign_ok, background,
+                         *order, width, height)
+
+
+def warp_args(camera, width, height, in_plane, a, eye, z_ref, grid_u,
+              grid_v, hi_res: int, wi_res: int):
+    """``(coeffs, sign_ok, order)``: what :func:`warp_to_screen` hands the
+    two-pass warp for an ``(hi_res, wi_res)`` intermediate. ``coeffs``
+    is the screen → intermediate homography, ``sign_ok`` the sign of a
+    forward ray's denominator, ``order`` the ``(t_int, t_out)`` that
+    :func:`pass_order` picks (None: the gather warp)."""
+    coeffs = _homography_coeffs(camera, width, height, in_plane, a, eye,
+                                z_ref, grid_u, grid_v)
+    sign_ok = float(np.sign(z_ref - eye[a]) or 1.0)
+    return coeffs, sign_ok, pass_order(coeffs, hi_res, wi_res)
+
+
+def pass_order(coeffs, hi_res: int, wi_res: int):
+    """``(t_int, t_out)`` of the best-scored factorization of the
+    screen → intermediate map ``coeffs`` over an ``(hi_res, wi_res)``
+    intermediate, or None when all four fail (see
+    :func:`warp_to_screen`)."""
+    a_coef, b_coef, c_coef = coeffs
 
     def score(num, den, extent):
         if abs(den) < 1e-12:
@@ -395,28 +419,7 @@ def warp_to_screen(
         (score(a_coef[1], c_coef[1], wi_res), True, True),
     ]
     best, t_int, t_out = max(variants, key=lambda v: v[0])
-    if best == -np.inf:
-        return _gather_warp(inter_rgb, inter_a, camera, width, height,
-                            in_plane, a, z_ref, grid_u, grid_v, background)
-
-    def idx_swap(c):
-        return np.asarray([c[0], c[2], c[1]])
-
-    ca, cb, cc = a_coef, b_coef, c_coef
-    rgb_in, a_in = inter_rgb, inter_a
-    w_o, h_o = width, height
-    if t_int:
-        ca, cb = cb, ca
-        rgb_in = rgb_in.transpose(0, 1)
-        a_in = a_in.transpose(0, 1)
-    if t_out:
-        ca, cb, cc = idx_swap(ca), idx_swap(cb), idx_swap(cc)
-        w_o, h_o = height, width
-    out = _warp_matmul(
-        rgb_in, a_in, ca, cb, cc, float(np.sign(z_ref - e_a) or 1.0),
-        background, w_o, h_o,
-    )
-    return out.transpose(0, 1) if t_out else out
+    return None if best == -np.inf else (t_int, t_out)
 
 
 def _gather_warp(inter_rgb, inter_a, camera, width, height, in_plane, a,
@@ -466,23 +469,9 @@ def _warp(inter_rgb, inter_a, grid_u, grid_v, origin, directions,
 
 
 # ---------------------------------------------------------------------------
-# Gather-free homography warp (two-pass per-line matmul resampling)
+# Gather-free homography warp (two-pass per-line tent resampling,
+# ops/cuda/warp_kernel.py)
 # ---------------------------------------------------------------------------
-#
-# The reference-plane → screen map is projective with a shared affine
-# denominator:
-#
-#     su(px,py) = (A0 + A1·px + A2·py) / (C0 + C1·px + C2·py)
-#     sv(px,py) = (B0 + B1·px + B2·py) / (C0 + C1·px + C2·py)
-#
-# It factors into two passes of per-line 1D resampling (Catmull–Smith):
-#
-#     pass A:  T(a, y)   = I(u(a, y), y)      with sv(a, py*) = y
-#     pass B:  S(px, py) = T(px, sv(px, py))
-#
-# Each pass builds dense tent (bilinear) weights and contracts them with
-# the image in one batched matrix product, in row or column chunks: the
-# full (Hi, Wo, Wi) weight tensor at 1080p is about 2.2 G elements.
 
 
 def _homography_coeffs(camera, width, height, in_plane, a_axis_idx,
@@ -509,81 +498,3 @@ def _homography_coeffs(camera, width, height, in_plane, a_axis_idx,
     b_coef = coeff(in_plane[1], grid_v[0], dvg)
     c_coef = np.array([e0[a_axis_idx], ex[a_axis_idx], ey[a_axis_idx]])
     return a_coef, b_coef, c_coef
-
-
-def _safe(den):
-    return torch.where(den.abs() < 1e-12, 1e-12, den)
-
-
-def _tent(coord: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
-    """bf16-rounded tent weights ``max(1 − |coord − tap|, 0)``."""
-    return round_bf16(torch.clamp_min(1.0 - (coord - taps).abs(), 0.0))
-
-
-# The reference rounds tent weights and image to bf16 and sums the
-# products in f32. TF32 holds bf16 values exactly, so it would not change
-# the products, only the kernel and its summation order: pinned off.
-@f32_matmul()
-def _warp_matmul(
-    inter_rgb,  # (Hi, Wi, 3) premultiplied
-    inter_a,  # (Hi, Wi)
-    a_coef, b_coef, c_coef,  # (3,) host coefficients each
-    sign_ok: float,  # +1/−1: required sign of the denominator
-    background,
-    w_out: int,
-    h_out: int,
-):
-    dev = inter_a.device
-    hi, wi = inter_a.shape
-    img = round_bf16(torch.cat([inter_rgb, inter_a[..., None]], dim=-1))
-
-    def f32(c):  # the reference holds the coefficients as f32 scalars
-        return [float(np.float32(v)) for v in c]
-
-    a0, a1, a2 = f32(a_coef)
-    b0, b1, b2 = f32(b_coef)
-    c0, c1, c2 = f32(c_coef)
-
-    # --- pass A: T[y, a] = I[y, u(a, y)] --------------------------------
-    a_idx = torch.arange(w_out, dtype=torch.float32, device=dev)
-    y_idx = torch.arange(hi, dtype=torch.float32, device=dev)
-    # py*(a, y): sv(a, py) = y  →  py = (y(C0+C1 a) − B0 − B1 a)/(B2 − y C2)
-    num = y_idx[:, None] * (c0 + c1 * a_idx[None, :]) - (
-        b0 + b1 * a_idx[None, :]
-    )
-    den = b2 - y_idx[:, None] * c2
-    py_star = num / _safe(den)  # (Hi, Wo)
-    u_den = c0 + c1 * a_idx[None, :] + c2 * py_star
-    u = (a0 + a1 * a_idx[None, :] + a2 * py_star) / _safe(u_den)
-
-    cols = torch.arange(wi, dtype=torch.float32, device=dev)
-    t_img = torch.empty((hi, w_out, 4), dtype=torch.float32, device=dev)
-    for r0 in range(0, hi, _WARP_CHUNK):
-        r1 = r0 + _WARP_CHUNK
-        w = _tent(u[r0:r1, :, None], cols)  # (c, Wo, Wi)
-        t_img[r0:r1] = torch.bmm(w, img[r0:r1])
-    t_img = round_bf16(t_img)
-
-    # --- pass B: S[py, px] = T[sv(px, py), px] ---------------------------
-    px = torch.arange(w_out, dtype=torch.float32, device=dev)
-    py = torch.arange(h_out, dtype=torch.float32, device=dev)
-    den_full = c0 + c1 * px[None, :] + c2 * py[:, None]  # (Ho, Wo)
-    sv = (b0 + b1 * px[None, :] + b2 * py[:, None]) / _safe(den_full)
-
-    rows = torch.arange(hi, dtype=torch.float32, device=dev)
-    s_img = torch.empty((w_out, h_out, 4), dtype=torch.float32, device=dev)
-    for x0 in range(0, w_out, _WARP_CHUNK):
-        x1 = x0 + _WARP_CHUNK
-        w = _tent(sv[:, x0:x1].T[..., None], rows)  # (c, Ho, Hi)
-        s_img[x0:x1] = torch.bmm(w, t_img[:, x0:x1].transpose(0, 1))
-    return _warp_finish(s_img.transpose(0, 1), den_full, sign_ok,
-                        background)
-
-
-def _warp_finish(s_img, den_full, sign_ok, background):
-    # Validity: forward rays only (the tent already zeros out-of-range
-    # samples, but behind-the-camera rays need the sign mask).
-    valid = (den_full * sign_ok > 0).to(torch.float32)
-    rgb = s_img[..., :3] * valid[..., None]
-    alpha = torch.clamp(s_img[..., 3] * valid, 0.0, 1.0)  # see _warp
-    return blend_background(rgb, alpha, background)

@@ -224,7 +224,7 @@ def test_source_hash_covers_every_kernel_source():
     names = sorted(p.name for p in _build._sources())
     assert names == ["classify.cu", "kendall.cu", "ksg.cu", "ksg_banded.cu",
                      "moments.cu", "pearson.cu", "raymarch.cu", "shearwarp.cu",
-                     "spearman.cu"]
+                     "spearman.cu", "warp.cu"]
     assert _build._source_hash() == _build._source_hash()
 
 

@@ -38,6 +38,7 @@ from correrender_tpu_torch.ops.cuda.shearwarp_kernel import (
     shearwarp_composite,
     shearwarp_composite_plain,
 )
+from correrender_tpu_torch.ops.cuda.warp_kernel import warp_two_pass
 from correrender_tpu_torch.render import camera as tcamera
 from correrender_tpu_torch.render.classify import classify, two_hot_weights
 from correrender_tpu_torch.render.tf import TransferFunction
@@ -297,3 +298,8 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no composite kernel"):
         shearwarp_composite(cf, meta, meta, meta, meta, meta, (0.0, 0.0),
                             torch.zeros((2, 2), device="meta"), 0.1, 1.0)
+    with pytest.raises(ValueError, match="no warp kernel"):
+        warp_two_pass(torch.zeros((2, 2, 3), device="meta"),
+                      torch.zeros((2, 2), device="meta"),
+                      (np.zeros(3), np.zeros(3), np.ones(3)), 1.0,
+                      (0.0, 0.0, 0.0, 1.0), False, False, 4, 4)
