@@ -35,6 +35,9 @@ class _HostStamp:
     def elapsed_time(self, end) -> float:
         return (end.t - self.t) * 1e3
 
+    def synchronize(self) -> None:
+        """Nothing runs behind the host's back on the CPU."""
+
 
 def stamps(device, count: int):
     """``count`` CUDA timing events on a CUDA device, else host stamps."""

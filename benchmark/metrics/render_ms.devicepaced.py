@@ -1,0 +1,9 @@
+"""``render_ms`` in the cells whose interactions wait on the card, under
+a name of its own: read as ``render_ms`` is, it moves their
+``frames_per_s``."""
+
+from benchmark import spec
+
+
+def read(run):
+    return spec.load_module("metrics", "render_ms").read(run)

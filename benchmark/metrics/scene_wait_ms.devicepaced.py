@@ -1,0 +1,9 @@
+"""``scene_wait_ms`` in the cells whose interactions wait on the card,
+under a name of its own: read as ``scene_wait_ms`` is, it moves their
+``interaction_ms_p95``."""
+
+from benchmark import spec
+
+
+def read(run):
+    return spec.load_module("metrics", "scene_wait_ms").read(run)

@@ -7,11 +7,16 @@ Set-up draws the cell's data on the card from ``--seed``, builds the
 program (the kernel library is built once a checkout, into
 ``build/kernels/``) and runs the warm-up interactions. The window then
 runs one closed-loop user for ``--seconds``: each interaction is sent
-once the last one's result is ready on the card. With ``--trace 0`` the
+once the last one's result is ready on the card, or, where the cell's
+settings give ``ahead_s``, while the card holds at most that many
+seconds of work sent and not done. With ``--trace 0`` the
 result holds the cell's end-to-end metrics; with ``--trace 1`` its
 per-layer metrics, read from a ``torch.profiler`` trace of the window's
 first part (``build/bench_traces/<cell>.json``) and from spans around
-the program's calls in the rest, with the trace's breakdown.
+the program's calls in the rest, with the trace's breakdown. A fixed
+probe of the host's CPU (``host.py``) runs 5 times just before the
+window opens and 5 times once it has closed; its median goes to
+standard error in every run, and is ``host_probe_ms`` with ``--trace 1``.
 
 Once the window has closed, the kept outputs are held to the plain
 references (``check.py``) and the last line of standard output is the
@@ -30,9 +35,11 @@ import time
 _T_TOP = time.perf_counter()
 
 import argparse  # noqa: E402
+import collections  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import statistics  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -47,6 +54,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "correrender_tpu")
 #: Seconds at the start of a ``--trace 1`` window that the profiler
 #: records (at most half the window).
 TRACE_SECONDS = 3.0
+#: Calls of the host probe (``host.py``) just before the window opens and
+#: again once it has closed.
+PROBES = 5
 
 
 def _process_age() -> float:
@@ -81,11 +91,13 @@ def forbidden_modules() -> list[str]:
 class TracedRun:
     """What the per-layer readers read: the cell, the spans, the traced
     window's interactions (``actions``, each with the ``camera`` in
-    effect) and the device trace."""
+    effect), the device trace and the host probe's milliseconds."""
 
-    def __init__(self, cell, spans: dict, actions: list, trace):
+    def __init__(self, cell, spans: dict, actions: list, trace,
+                 host_probe_ms=()):
         self.cell, self.spans = cell, spans
         self.actions, self.trace = actions, trace
+        self.host_probe_ms = list(host_probe_ms)
 
     def span_mean(self, name: str):
         values = self.spans.get(name)
@@ -111,7 +123,14 @@ def _percentile(values, q: float) -> float:
     return float(np.percentile(np.asarray(values, np.float64), q))
 
 
+#: The same numbers under the names that cells whose frames wait on the
+#: host's CPU report them by, with bounds of their own.
+HOSTPACED = {"hostpaced_ms_p95": "interaction_ms_p95",
+             "hostpaced_frames_per_s": "frames_per_s"}
+
+
 def end_to_end(name: str, window: dict) -> float:
+    name = HOSTPACED.get(name, name)
     if name == "interaction_ms_p95":
         return _percentile(window["latency_ms"], 95)
     if name == "frames_per_s":
@@ -128,10 +147,12 @@ class Window:
     """The measured window: the interactions, their latencies and the
     outputs kept for the check."""
 
-    def __init__(self, driver, actions, keep: set, device):
+    def __init__(self, driver, actions, keep: set, device,
+                 ahead_s: float = 0.0):
         from benchmark.drivers import stamps, sync
 
         self.driver, self.actions, self.keep = driver, actions, keep
+        self.ahead_s = ahead_s
         self.stamps = lambda: stamps(device, 2)
         self.sync = lambda: sync(device)
         self.latency_ms, self.kept, self.traced = [], [], []
@@ -150,18 +171,45 @@ class Window:
 
     def timed(self, until: float, count: int = 0) -> None:
         """Interactions until the host clock passes ``until`` and at least
-        ``count`` have completed, each timed by CUDA events from its start
-        to its result on the card."""
-        start, end = self.stamps()
+        ``count`` have been sent, each timed by CUDA events from its start
+        to its result on the card. With ``ahead_s``, interactions are sent
+        while those in flight hold at most that many seconds of the card's
+        work (by the median of the last 16 latencies), and the window ends
+        once every one sent is done: the card stays fed while the host
+        stands still, and a latency is the card's time for its
+        interaction. Else each is sent once the last one's result is
+        ready."""
+        flight = collections.deque()
         while time.perf_counter() < until or self.completed < count:
             action = next(self.actions)
+            start, end = self.stamps()
             start.record()
             out = self.driver.interact(action)
             end.record()
-            self.sync()
-            self.latency_ms.append(start.elapsed_time(end))
+            flight.append((start, end))
             self._record(action, out, self.completed)
             self.completed += 1
+            while len(flight) > self._depth():
+                self._done(flight.popleft(), wait=True)
+        self.sync()
+        while flight:
+            self._done(flight.popleft(), wait=False)
+
+    def _depth(self) -> int:
+        """How many interactions may be in flight."""
+        if not self.ahead_s or not self.latency_ms:
+            return 0
+        recent = statistics.median(self.latency_ms[-16:])
+        return max(1, int(self.ahead_s * 1e3 / max(recent, 1e-3)))
+
+    def _done(self, events, wait: bool) -> None:
+        """Wait for an interaction sent earlier and keep its latency."""
+        start, end = events
+        if wait and self.ahead_s:
+            end.synchronize()
+        elif wait:
+            self.sync()
+        self.latency_ms.append(start.elapsed_time(end))
 
     def profiled(self, until: float) -> None:
         from torch.profiler import record_function
@@ -211,7 +259,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     result dict, or None when a forbidden module was loaded."""
     import torch
 
-    from benchmark import check, drivers, spec, traffic, tracing
+    from benchmark import check, drivers, host, spec, traffic, tracing
 
     check.references(cell)
     t_driver = time.perf_counter()
@@ -222,10 +270,13 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     keep = set(traffic.check_sample(seed, int(chk["interactions"]),
                                     int(chk["within"])))
     window = Window(driver, traffic.interactions(cell.traffic, grid_xyz,
-                                                 seed), keep, device)
+                                                 seed), keep, device,
+                    float(cell.settings.get("ahead_s", 0.0)))
     window.sync()
+    t_ready = time.perf_counter()
+    setup_s = _AGE_AT_TOP + (t_ready - _T_TOP)
+    probe_ms = host.probe_ms(PROBES)
     t0 = time.perf_counter()
-    setup_s = _AGE_AT_TOP + (t0 - _T_TOP)
     spans, traced = {}, None
     if not trace:
         window.timed(t0 + seconds)
@@ -245,6 +296,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         del prof
         window.spans(t0 + seconds, spans)
     elapsed = time.perf_counter() - t0
+    probe_ms += host.probe_ms(PROBES)
     window.finish()
     peak = (int(torch.cuda.max_memory_allocated(device))
             if device.type == "cuda" else 0)
@@ -280,7 +332,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
             metrics[m["name"]] = {"value": end_to_end(m["name"], measured),
                                   "unit": m["unit"]}
     else:
-        run_data = TracedRun(cell, spans, window.traced, traced)
+        run_data = TracedRun(cell, spans, window.traced, traced, probe_ms)
         for m in cell.per_layer:
             value = spec.load_module("metrics", m["name"]).read(run_data)
             if value is not None:
@@ -294,7 +346,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     result["check"] = report
     print(f"set-up: {_AGE_AT_TOP:.3f} s to the harness's first line, "
           f"{t_driver - _T_TOP:.3f} s of imports and the device, "
-          f"{t0 - t_driver:.3f} s of data, program and warm-up",
+          f"{t_ready - t_driver:.3f} s of data, program and warm-up",
+          file=sys.stderr)
+    print(f"host probe: median {host.median(probe_ms)!r} ms of "
+          f"{len(probe_ms)} (before the window "
+          f"{', '.join(f'{v:.3f}' for v in probe_ms[:PROBES])}; after "
+          f"{', '.join(f'{v:.3f}' for v in probe_ms[PROBES:])})",
           file=sys.stderr)
     lat = sorted(window.latency_ms) or [float("nan")]
     print(f"{cell.name} seed {seed}: {window.completed} interactions in "

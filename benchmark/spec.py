@@ -2,8 +2,9 @@
 
 ``BENCHMARK.json`` at the root of the checkout names each cell's
 configuration and traffic mix; each is a JSON file under this folder
-(``configs/<name>.json``, ``traffic/<name>.json``), as is the cell's own
-check settings (``workloads/<name>.json``). The code that serves and
+(``configs/<name>.json``, ``traffic/<name>.json``), as are the cell's own
+settings (``workloads/<name>.json``: the check's sample and limits, and
+where the card may be fed ahead of the host, ``ahead_s``). The code that serves and
 checks them is found by the names in those files: the driver
 ``drivers/<serve.entry>.py``, the interaction kind
 ``interactions/<interaction>.py``, the references

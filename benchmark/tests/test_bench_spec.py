@@ -81,8 +81,9 @@ def test_every_cell_has_its_files(cell):
 
 
 def test_a_cell_added_by_files_alone_is_found(tmp_path):
-    """A later change adds a traffic mix, a cell's settings and an entry:
-    no existing file of the benchmark is edited."""
+    """A later change adds a traffic mix, a cell's settings and an entry,
+    and names the cell in the metrics it reports: no existing file of the
+    benchmark is edited."""
     shutil.copytree(spec.HERE, tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads(json.dumps(BENCH))
@@ -98,12 +99,16 @@ def test_a_cell_added_by_files_alone_is_found(tmp_path):
                                "config": "linear4x4-m1000",
                                "traffic": "pearson-long-drag", "chips": 1,
                                "why": "longer steps"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in ("hostpaced_ms_p95", "device_idle_pct"):
+            m["workloads"].append("linear4x4-long-drag")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     cell = spec.load_cell("linear4x4-long-drag", root=tmp_path)
     assert cell.traffic["step_max"] == 8
     assert {m["name"] for m in cell.end_to_end} == {
-        "interaction_ms_p95", "setup_s"}
-    assert {m["name"] for m in cell.per_layer} == {"device_idle_pct"}
+        "hostpaced_ms_p95", "setup_s"}
+    assert {m["name"] for m in cell.per_layer} == {"device_idle_pct",
+                                                   "host_probe_ms"}
 
 
 def test_a_kind_a_driver_and_a_reference_are_found_by_name(tmp_path,

@@ -99,3 +99,20 @@ def test_check_sample_is_seeded_and_inside():
     a = traffic.check_sample(2**31 + 1, 3, 24)
     assert a == traffic.check_sample(2**31 + 1, 3, 24)
     assert len(set(a)) == 3 and all(0 <= i < 24 for i in a)
+
+
+@pytest.mark.parametrize("name", [m for m in MIXES if "orbit" not in m])
+def test_every_seed_drags_through_the_same_block_ends(name):
+    """The seed orders each block's steps and leaves their lengths alone,
+    so the work a window meets does not depend on the seed. (A block
+    whose steps all meet visited points takes in the next one, so a few
+    block ends are passed apart.)"""
+    from benchmark.interactions import reference_point
+    block = reference_point.BLOCK
+    mix = _mix(name)
+    runs = [[a["point"] for a in _take(mix, 2**31 + s, count=40 * block + 1)]
+            for s in range(4)]
+    ends = list(zip(*(r[::block] for r in runs)))
+    shared = sum(len(set(e)) == 1 for e in ends)
+    assert shared >= 0.9 * len(ends)
+    assert len({tuple(r) for r in runs}) == 4

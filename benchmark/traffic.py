@@ -7,7 +7,8 @@ mix's parameters and the seed's generator into the interactions. The
 seed chooses only spacings and ways, never the number or kind of the
 interactions. Every mix is a closed loop with one client (``loop``,
 ``clients``): the next interaction is sent once the last result is
-ready. A mix that asks for another loop is refused.
+ready, or with a cell's ``ahead_s`` while the card is fed (``run.py``).
+A mix that asks for another loop is refused.
 """
 
 from __future__ import annotations
